@@ -1,0 +1,218 @@
+"""The port's BiCGStab and structured AMG against fvm_tpu on real systems.
+
+The first outer step of a 32^2 lid-driven cavity and of a two-wall thermal
+case (float64) runs in both packages with solvers that record the systems
+they are handed; the same systems then go through the solvers of both
+packages.  The AMG hierarchies must agree level by level (grid sizes, tail
+folds, Galerkin DIA coefficients), the solutions to 1e-10 relative and the
+iteration counts exactly.  The momentum system is multi-RHS (u and v share
+one BiCGStab recurrence).  The cases are ones whose trajectories are
+well-conditioned: a weakly preconditioned BiCGStab on the thermal or
+pressure system moves its solution by ~1e-7 relative when b moves by one
+ulp, in either package alone, so it cannot be compared at 1e-10.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+import fvm_tpu as jfvm
+import fvm_tpu_torch as tfvm
+from fvm_tpu.linear import (AMG as JAMG, BiCGStab as JBiCGStab,
+                            JacobiSolver as JJacobi)
+from fvm_tpu.linear import krylov as jkrylov
+from fvm_tpu.models import FlowModel as JFlow, ThermalModel as JThermal
+from fvm_tpu_torch.linear import (AMG as TAMG, BiCGStab as TBiCGStab,
+                                  JacobiSolver as TJacobi)
+from fvm_tpu_torch.linear import krylov as tkrylov
+from fvm_tpu_torch.models import FlowModel as TFlow, ThermalModel as TThermal
+
+N = 32
+SOL_RTOL = 1e-10
+COEF_RTOL = 1e-13
+
+
+def _recording(solver):
+    """Make ``solver`` record each (A, b) it is asked to solve."""
+    solver.systems = []
+    inner = solver.solve_fn
+
+    def solve_fn(A, b, x0):
+        solver.systems.append((A, b))
+        return inner(A, b, x0)
+
+    solver.solve_fn = solve_fn
+    return solver
+
+
+def _models(dmesh, Flow, Thermal, AMG, BiCGStab):
+    flow = Flow(dmesh)
+    flow.options["verbose"] = False
+    flow.vc["viscosity"] = 0.01
+    for side in ("left", "right", "bottom", "top"):
+        flow.bc[side].bc_type = "NoSlipWall"
+    flow.bc["top"]["specifiedXVelocity"] = 1.0
+    flow.options["momentumLinearSolver"] = _recording(
+        BiCGStab(relative_tolerance=1e-2, max_iterations=10))
+    flow.options["pressureLinearSolver"] = _recording(
+        AMG(coarse_size=16, relative_tolerance=1e-3, max_iterations=6))
+    thermal = Thermal(dmesh)
+    thermal.options["verbose"] = False
+    thermal.options["linearSolver"] = _recording(
+        AMG(coarse_size=16, relative_tolerance=1e-3, max_iterations=6))
+    thermal.bc["left"].bc_type = "SpecifiedTemperature"
+    thermal.bc["left"]["specifiedTemperature"] = 400.0
+    thermal.bc["right"].bc_type = "SpecifiedTemperature"
+    thermal.bc["right"]["specifiedTemperature"] = 300.0
+    thermal.bc["bottom"].bc_type = "Symmetry"
+    thermal.bc["top"].bc_type = "Symmetry"
+    for m in (flow, thermal):
+        m.init()
+    return flow, thermal
+
+
+@pytest.fixture(scope="module")
+def systems():
+    jd = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(N, N),
+                                     dtype=jnp.float64)
+    td = tfvm.mesh.build_device_mesh(tfvm.mesh.generate.quad_2d(N, N),
+                                     dtype="float64", device="cpu")
+    jf, jt = _models(jd, JFlow, JThermal, JAMG, JBiCGStab)
+    tf, tt = _models(td, TFlow, TThermal, TAMG, TBiCGStab)
+    out = {}
+    for jm, tm in ((jf, tf), (jt, tt)):
+        jm._step_raw(jm.mesh, jm.params, jm.state, jm._resolve_bcvals())
+        tm._step(tm.mesh, tm.params, tm.state, tm._resolve_bcvals())
+    for name, key, jm, tm in (
+            ("momentum", "momentumLinearSolver", jf, tf),
+            ("pressure", "pressureLinearSolver", jf, tf),
+            ("thermal", "linearSolver", jt, tt)):
+        out[name] = (jm.options[key].systems[0], tm.options[key].systems[0])
+    return out
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _close(t, j, rtol):
+    t, j = _np(t), _np(j)
+    assert t.shape == j.shape
+    if j.size == 0:
+        return
+    scale = max(float(np.abs(j).max()), 1e-300)
+    np.testing.assert_allclose(t, j, rtol=rtol, atol=rtol * scale)
+
+
+SOLVERS = {
+    # the bench momentum solver: multi-RHS, no preconditioner
+    "bicgstab": lambda L: L.BiCGStab(relative_tolerance=1e-9,
+                                     max_iterations=300),
+    "bicgstab+jacobi": lambda L: L.BiCGStab(
+        preconditioner=L.JacobiSolver(sweeps=3), relative_tolerance=1e-9,
+        max_iterations=300),
+    "bicgstab+amg": lambda L: L.BiCGStab(
+        preconditioner=L.AMG(coarse_size=16), relative_tolerance=1e-9,
+        max_iterations=100),
+    "amg": lambda L: L.AMG(coarse_size=16, relative_tolerance=1e-6,
+                           max_iterations=200),
+}
+
+
+class _J:
+    AMG, BiCGStab, JacobiSolver = JAMG, JBiCGStab, JJacobi
+
+
+class _T:
+    AMG, BiCGStab, JacobiSolver = TAMG, TBiCGStab, TJacobi
+
+
+CASES = [("momentum", "bicgstab"), ("momentum", "bicgstab+jacobi"),
+         ("pressure", "bicgstab+amg"), ("pressure", "amg"),
+         ("thermal", "amg"), ("thermal", "bicgstab+amg")]
+
+
+@pytest.mark.parametrize("system,solver", CASES,
+                         ids=[f"{a}-{b}" for a, b in CASES])
+def test_solution_and_iterations_match(systems, system, solver):
+    (jA, jb), (tA, tb) = systems[system]
+    js, ts = SOLVERS[solver](_J), SOLVERS[solver](_T)
+    jx, jst = js.solve_fn(jA, jb, jnp.zeros_like(jb))
+    tx, tst = ts.solve_fn(tA, tb, torch.zeros_like(tb))
+    assert int(tst.iterations) == int(jst.iterations)
+    assert bool(tst.converged) == bool(jst.converged)
+    assert bool(tst.converged), (system, solver, float(tst.residual))
+    _close(tx, jx, SOL_RTOL)
+    _close(tst.residual0, jst.residual0, COEF_RTOL)
+    _close(tst.residual, jst.residual, 1e-6)
+
+
+STALL_CASES = [("momentum", "bicgstab"), ("momentum", "bicgstab+jacobi"),
+               ("pressure", "bicgstab+amg"), ("thermal", "bicgstab+amg")]
+
+
+@pytest.mark.parametrize("system,solver", STALL_CASES,
+                         ids=[f"{a}-{b}" for a, b in STALL_CASES])
+def test_bicgstab_stall_restart_matches(systems, system, solver, monkeypatch):
+    """The rho-breakdown restart (``stall_restart``) against fvm_tpu.  Its
+    real threshold (1e-8 |rhat| |r| in float64) is not reached on these
+    well-conditioned systems, and the systems where it is are too sensitive
+    to compare (BiCGStab on a strongly non-normal operator amplifies
+    round-off by orders of magnitude per iteration).  So both packages'
+    threshold is raised to the same 0.3 here: the restart then fires, and
+    the trajectories must still agree."""
+    (jA, jb), (tA, tb) = systems[system]
+    monkeypatch.setattr(jkrylov, "_stall_tol", lambda dtype: 0.3)
+    monkeypatch.setattr(tkrylov, "_stall_tol", lambda dtype: 0.3)
+    js, ts, plain = (SOLVERS[solver](L) for L in (_J, _T, _T))
+    js.stall_restart = ts.stall_restart = True
+    jx, jst = js.solve_fn(jA, jb, jnp.zeros_like(jb))
+    tx, tst = ts.solve_fn(tA, tb, torch.zeros_like(tb))
+    nx, nst = plain.solve_fn(tA, tb, torch.zeros_like(tb))
+    assert bool(tst.converged) and bool(jst.converged)
+    assert int(tst.iterations) == int(jst.iterations)
+    _close(tx, jx, SOL_RTOL)
+    # the restart really fired: without it the port takes another path
+    assert (int(nst.iterations) != int(tst.iterations)
+            or not torch.equal(nx, tx))
+
+
+@pytest.mark.parametrize("system", ["pressure", "thermal"])
+def test_amg_hierarchy_matches(systems, system):
+    (jA, jb), (tA, tb) = systems[system]
+    jamg, tamg = JAMG(coarse_size=16), TAMG(coarse_size=16)
+    jA2 = jA.condense(jb)[0].prepare()
+    tA2 = tA.condense(tb)[0].prepare()
+    jlev, jmats, jdense = jamg._build_hierarchy(jA2)
+    tlev, tmats, tinv = tamg._build_hierarchy(tA2)
+    assert len(tlev) == len(jlev) >= 4
+    for jl, tl in zip(jlev, tlev):
+        for f in ("nx", "ny", "n", "m", "nx_c", "ny_c", "nC", "pair_x",
+                  "coarse_offsets"):
+            assert getattr(tl, f) == getattr(jl, f), f
+        _close(tl.tail_rows, jl.tail_rows, 0)
+        _close(tl.tail_agg, jl.tail_agg, 0)
+    assert len(tmats) == len(jmats)
+    for jm, tm in zip(jmats[1:], tmats[1:]):
+        assert tm.offsets == jm.offsets
+        _close(tm.diag, jm.diag, COEF_RTOL)
+        _close(tm.coef, jm.coef, COEF_RTOL)
+    _close(tinv, jdense[-1], 1e-10)
+    # one V-cycle on the same residual
+    rng = np.random.default_rng(1)
+    r = rng.normal(size=tuple(tb.shape))
+    jz = jamg._cycle(jlev, jmats, jdense, 0, jnp.asarray(r))
+    tz = tamg._cycle(tlev, tmats, tinv, 0, torch.from_numpy(r))
+    _close(tz, jz, SOL_RTOL)
+
+
+def test_amg_rejects_unstructured_graph():
+    """No silent fallback: a graph that is not a tensor-product grid needs
+    the greedy aggregation, which is not ported yet."""
+    rng = np.random.default_rng(2)
+    n, K = 200, 3
+    cols = rng.integers(0, n, size=(n, K))
+    mask = np.ones((n, K), dtype=bool)
+    with pytest.raises(NotImplementedError, match="greedy"):
+        TAMG().setup_structure(cols, mask, "cpu")
