@@ -3,24 +3,30 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, one line each (a failing phase raises and the script exits non-zero
-before the last line):
+Phases, one line each or a short table (a failing phase raises and the
+script exits non-zero before the last line):
 
   1. device   - requires CUDA; prints the card, the device count and
                 ``nvidia-smi --query-gpu=name,power.limit``;
-  2. build    - builds the ``dia_stencil`` CUDA kernel from the repository's
-                sources (nvcc, ptxas register/spill report);
-  3. kernel   - the kernel against its plain PyTorch version on the card:
-                3 modes x {f32, f64} x {(n,), (n, 2)} at the 1024^2 cavity's
-                condensed fine-level operator and at a multi-block case;
+  2. build    - builds the ``dia_stencil`` CUDA kernel's two variants
+                (wide, narrow) from the repository's sources, four nvcc
+                runs in parallel (ptxas register/spill summary);
+  3. kernel   - each variant against the plain PyTorch version on the
+                card, max abs error 0 required: 3 modes x {f32, f64} x
+                {(n,), (n, 2)} at every smoothed level of the AMG hierarchy
+                the main path builds (the condensed fine level first) and
+                at a multi-block case; x and b views at unaligned bases
+                with n not a multiple of 4, m up to 3;
   4. slice    - the coupled flow+thermal step at 64^2 in float64 on the card
                 and on the CPU (plain versions): residual histories agree;
   5. main     - the main path at full size: the 1024^2 float32 coupled
-                cavity of ``bench.py:main()``, 2 warm-up + 10 timed outer
-                steps, with the kernel's launch counts;
+                cavity of ``bench.py:main()``, warm-up + 10 timed outer
+                steps, with the kernel's launch counts per mode, variant and
+                level, and the device profile of two steps;
   6. timing   - the kernel, its plain version and the library call (mv:
                 ``torch.sparse.mm``, residual: ``torch.addmv``, both on a
-                CSR copy) at the main path's shapes, beside the bound;
+                CSR copy) at the fine level, beside the bound; then each AMG
+                level's Jacobi and residual device time per launch;
 then the ``kernels`` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
@@ -42,15 +48,10 @@ TIMED_STEPS = 10
 SLICE_N = 64
 SLICE_STEPS = 5
 SLICE_RTOL = 1e-8
-# kernel vs plain: summation-order tolerance, relative to max |y|
-KERNEL_RTOL = {"float32": 1e-6, "float64": 1e-13}
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
-# tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # kernel timing: calls per measurement, and operand copies cycled through
-# (4 x ~36 MB, beyond the 50 MB L2)
+# (4 x ~36 MB at the fine level, beyond the 50 MB L2)
 TIMING_REPS = 200
+LEVEL_REPS = 100
 TIMING_COPIES = 4
 # the library call timed beside each mode, and its agreement with the plain
 # version (float32, another summation order)
@@ -64,61 +65,48 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def random_operator(n, offsets, dtype, device, seed):
-    """Random DIA operator with the out-of-range coefficients zeroed (as
-    ``analyze_offsets`` guarantees for real matrices) and a dominant
-    diagonal, made from a seed."""
-    import torch
-
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    coef = torch.randn((len(offsets), n), generator=g, dtype=torch.float64)
-    idx = torch.arange(n)
-    for j, d in enumerate(offsets):
-        coef[j, (idx + d < 0) | (idx + d >= n)] = 0.0
-    diag = torch.rand(n, generator=g, dtype=torch.float64) + 4.0
-    return coef.to(device, dtype), diag.to(device, dtype)
-
-
-def random_vectors(n, m, dtype, device, seed):
-    import torch
-
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    shape = (n,) if m == 1 else (n, m)
-    x = torch.randn(shape, generator=g, dtype=torch.float64)
-    b = torch.randn(shape, generator=g, dtype=torch.float64)
-    return x.to(device, dtype), b.to(device, dtype)
-
-
-def kernel_vs_plain(label, n, offsets, device, errors):
-    """All modes x dtypes x nrhs at one shape; records max abs errors of the
-    float32 checks per mode into ``errors``."""
+def kernel_vs_plain(label, n, offsets, device, errors, nrhs=(1, 2),
+                    views=False):
+    """Both variants against the plain version at one shape, bit for bit;
+    max abs errors go into ``errors`` by variant and mode.  With ``views``
+    x and b are views at unaligned bases.  One log line per shape."""
     import torch
     from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools.kernel_bench import random_operator, random_vectors
 
+    checks, worst = 0, 0.0
     for dtype_name in ("float32", "float64"):
         dtype = getattr(torch, dtype_name)
         coef, diag = random_operator(n, offsets, dtype, device, seed=1)
-        for m in (1, 2):
+        for m in nrhs:
             x, b = random_vectors(n, m, dtype, device, seed=2 + m)
+            if views:
+                xs = torch.zeros(n * m + 5, dtype=dtype, device=device)
+                bs = torch.zeros(n * m + 5, dtype=dtype, device=device)
+                x = xs[1:1 + n * m].view(x.shape).copy_(x)
+                b = bs[3:3 + n * m].view(b.shape).copy_(b)
+                if x.data_ptr() % 16 == 0 or b.data_ptr() % 16 == 0:
+                    raise AssertionError("the views are aligned")
             for mode in dk.MODES:
-                kw = {} if mode == "mv" else {"b": b}
-                if mode == "jacobi":
-                    kw["omega"] = 0.7
-                y = dk.dia_stencil(offsets, mode, coef, diag, x, **kw)
-                y_ref = dk.dia_stencil_plain(offsets, mode, coef, diag, x, **kw)
-                torch.cuda.synchronize()
-                scale = float(y_ref.abs().max())
-                err = float((y - y_ref).abs().max())
-                rel = err / scale
-                ok = bool(torch.isfinite(y).all()) and rel <= KERNEL_RTOL[dtype_name]
-                log("kernel", f"{label} n={n} D={len(offsets)} {dtype_name} "
-                    f"m={m} {mode}: max rel err {rel:.3e} "
-                    f"(tol {KERNEL_RTOL[dtype_name]:g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"dia_stencil disagrees: {label} "
-                                         f"{dtype_name} m={m} {mode}")
-                if dtype_name == MAIN_DTYPE:
-                    errors[mode] = max(errors.get(mode, 0.0), err)
+                omega = 0.7 if mode == "jacobi" else None
+                bb = None if mode == "mv" else b
+                y_ref = dk.dia_stencil_plain(offsets, mode, coef, diag, x,
+                                             b=bb, omega=omega)
+                for variant in dk.VARIANTS:
+                    y = dk._launch(offsets, mode, coef, diag, x, bb, omega,
+                                   variant=variant)
+                    torch.cuda.synchronize()
+                    err = float((y - y_ref).abs().max())
+                    if not (bool(torch.isfinite(y).all()) and err == 0.0):
+                        raise AssertionError(
+                            f"dia_stencil {variant} disagrees: {label} "
+                            f"{dtype_name} m={m} {mode}: max abs err {err:.3e}")
+                    key = (variant, mode)
+                    errors[key] = max(errors.get(key, 0.0), err)
+                    worst = max(worst, err)
+                    checks += 1
+    log("kernel", f"{label}: n={n} offsets={tuple(offsets)}: {checks} checks "
+        f"(variants x dtypes x m x modes), max abs err {worst:g} (need 0) ok")
 
 
 def coupled_history(n, steps, device, dtype):
@@ -176,28 +164,6 @@ def time_graph(fns, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_device(fns, reps):
-    """Mean device ms per call of ``reps`` eager calls: the self device
-    time of every kernel they launched (torch.profiler), summed, over
-    ``reps``.  Gaps between kernels do not count."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        for i in range(reps):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
-
-
 def csr_copy(offsets, coef, diag):
     """The same DIA matrix as a torch CSR tensor (for ``library_ms``)."""
     import torch
@@ -233,8 +199,9 @@ def library_call(mode, csr, x, b):
 
 def profile_steps(flow, thermal, step_ms, steps=2):
     """Device time of ``steps`` coupled steps by kernel (torch.profiler):
-    the device-busy share of the unprofiled step time and the kernels that
-    take the most device time."""
+    the device-busy share of the unprofiled step time, the kernel launches
+    per step, the ``dia_stencil`` kernels' device ms per step, and the
+    kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fvm_tpu_torch.cases import coupled_step
@@ -252,15 +219,37 @@ def profile_steps(flow, thermal, step_ms, steps=2):
         us = e.self_device_time_total
         if us > 0:
             rows.append((us / 1e3 / steps, e.count / steps, e.key))
-    busy = sum(r[0] for r in rows)
     if not rows:
         log("profile", "torch.profiler recorded no device time: not measured")
         return
+    busy = sum(r[0] for r in rows)
     log("profile", f"device busy {busy:.3f} ms of a {step_ms:.3f} ms step "
         f"({100 * busy / step_ms:.1f}% busy, "
-        f"{100 - 100 * busy / step_ms:.1f}% idle)")
-    for ms, n, key in sorted(rows, reverse=True)[:12]:
+        f"{100 - 100 * busy / step_ms:.1f}% idle), "
+        f"{sum(r[1] for r in rows):g} kernel launches per step")
+    for variant in ("wide", "narrow"):
+        mine = [r for r in rows if f"dia_{variant}_kernel" in r[2]]
+        log("profile", f"dia_stencil {variant}: "
+            f"{sum(r[0] for r in mine):.4f} ms/step over "
+            f"{sum(r[1] for r in mine):g} launches/step")
+    dia = [r for r in rows if "dia_" in r[2] and "_kernel" in r[2]]
+    log("profile", f"dia_stencil device time per step: "
+        f"{sum(r[0] for r in dia):.4f} ms over {sum(r[1] for r in dia):g} "
+        f"launches")
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
         log("profile", f"  {ms:8.3f} ms/step {n:7.1f} calls/step  {key[:90]}")
+
+
+def level_shapes(flow):
+    """(rows, offsets) of every smoothed level of the pressure AMG's
+    hierarchy, as the main path built it: the condensed fine level, then
+    each structured coarse level but the coarsest (solved densely)."""
+    amg = flow.options["pressureLinearSolver"]
+    levels = next(iter(amg._levels_by_cols.values()))[1]
+    dia = flow.mesh.dia
+    fine = dia.cond_plan.dia2 if dia.cond_plan else dia
+    return ([(flow.mesh.n_cells, tuple(fine.offsets))]
+            + [(lev.nC, tuple(lev.coarse_offsets)) for lev in levels[:-1]])
 
 
 def main() -> int:
@@ -273,8 +262,7 @@ def main() -> int:
         return 2
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.cases import coupled_cavity, coupled_step
-    from fvm_tpu_torch.mesh import build_device_mesh
-    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.tools import kernel_bench as kb
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -291,21 +279,31 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
     dk.build(verbose=True)
-    log("build", f"dia_stencil built from {KERNEL_SOURCE} in "
+    log("build", f"dia_stencil wide and narrow built from {KERNEL_SOURCE} in "
         f"{time.time() - t0:.1f} s")
 
     # ---- 3. kernel vs plain on the card -----------------------------------
-    host = quad_2d(MAIN_N, MAIN_N)
-    dmesh = build_device_mesh(host, dtype=MAIN_DTYPE, device=device)
-    dia = dmesh.dia.cond_plan.dia2 if dmesh.dia.cond_plan else dmesh.dia
-    main_offsets = dia.offsets
-    n_main = dmesh.n_cells
+    # the main path's case, one warm-up step to build its AMG hierarchies
+    t0 = time.time()
+    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
+    coupled_step(flow, thermal)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    shapes = level_shapes(flow)
+    if ([(n, sorted(o)) for n, o in shapes]
+            != [(n, sorted(o)) for n, o in kb.cavity_level_shapes(MAIN_N)]):
+        raise AssertionError(f"AMG levels {shapes} differ from "
+                             f"kernel_bench.cavity_level_shapes")
+    n_main, main_offsets = shapes[0]
     errors = {}
-    kernel_vs_plain(f"cavity {MAIN_N}^2 condensed fine level", n_main,
-                    main_offsets, device, errors)
+    for lvl, (n, offsets) in enumerate(shapes):
+        kernel_vs_plain(f"AMG level {lvl}" + (
+            f" (cavity {MAIN_N}^2 condensed fine level)" if lvl == 0
+            else ""), n, offsets, device, errors)
     kernel_vs_plain("multi-block", 3 * 512 * 128 + 777,
-                    (-640, -128, -1, 1, 128, 640), device, {})
-    del dmesh
+                    (-640, -128, -1, 1, 128, 640), device, errors)
+    kernel_vs_plain("unaligned x/b views", 200_003, (-448, -1, 1, 448),
+                    device, errors, nrhs=(1, 2, 3), views=True)
 
     # ---- 4. slice on the card vs slice on the CPU --------------------------
     t0 = time.time()
@@ -320,12 +318,9 @@ def main() -> int:
         raise AssertionError("cuda and cpu slices disagree")
 
     # ---- 5. main path at full size ----------------------------------------
-    t0 = time.time()
-    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
-    torch.cuda.synchronize()
-    log("main", f"{MAIN_N}^2 {MAIN_DTYPE} coupled cavity set up in "
-        f"{time.time() - t0:.1f} s ({flow.mesh.n_cells} rows)")
-    for _ in range(WARMUP_STEPS):
+    log("main", f"{MAIN_N}^2 {MAIN_DTYPE} coupled cavity set up and first "
+        f"step in {setup_s:.1f} s ({flow.mesh.n_cells} rows)")
+    for _ in range(WARMUP_STEPS - 1):
         coupled_step(flow, thermal)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -336,13 +331,17 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dk.dia_stencil.launches)
+    by_shape = dict(dk.dia_stencil.shapes)
+    by_variant = dk.variant_launches()
     resids = [float(v) for v in res]
     cells = MAIN_N * MAIN_N
     log("main", f"{TIMED_STEPS} coupled steps in {dt:.4f} s: "
         f"{cells * TIMED_STEPS / dt:.6e} cells/s, "
         f"{1e3 * dt / TIMED_STEPS:.3f} ms/step")
     log("main", "dia_stencil launches per step: " + ", ".join(
-        f"{m} {launches[m] / TIMED_STEPS:g}" for m in dk.MODES))
+        f"{m} {launches[m] / TIMED_STEPS:g}" for m in dk.MODES) + "; " +
+        ", ".join(f"{v} {by_variant[v] / TIMED_STEPS:g}"
+                  for v in dk.VARIANTS))
     log("main", f"final residuals (mom, cont, thermal): {resids}")
     log("main", f"max memory allocated: "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -353,9 +352,14 @@ def main() -> int:
     if not all(v == v and abs(v) != float("inf") for v in resids):
         raise AssertionError(f"non-finite residuals {resids}")
     missing = [m for m in dk.MODES if launches[m] == 0]
+    missing += [v for v in dk.VARIANTS if by_variant[v] == 0]
     if missing:
-        raise AssertionError(f"dia_stencil modes never launched: {missing}")
+        raise AssertionError(f"dia_stencil never launched: {missing}")
     profile_steps(flow, thermal, 1e3 * dt / TIMED_STEPS)
+    del flow, thermal, res, V
+
+    def per_step(variant, mode, n):
+        return by_shape.get((variant, mode, n), 0) / TIMED_STEPS
 
     # ---- 6. kernel timing at the main path's shapes ------------------------
     dtype = getattr(torch, MAIN_DTYPE)
@@ -367,9 +371,9 @@ def main() -> int:
         kw_extra = {"omega": 0.7} if mode == "jacobi" else {}
         sets = []
         for k in range(TIMING_COPIES):
-            coef, diag = random_operator(n_main, main_offsets, dtype, device,
-                                         seed=10 + k)
-            x, b = random_vectors(n_main, m, dtype, device, seed=20 + k)
+            coef, diag = kb.random_operator(n_main, main_offsets, dtype,
+                                            device, seed=10 + k)
+            x, b = kb.random_vectors(n_main, m, dtype, device, seed=20 + k)
             kw = dict(kw_extra) if mode == "mv" else dict(kw_extra, b=b)
             sets.append((coef, diag, x, kw))
 
@@ -385,11 +389,10 @@ def main() -> int:
 
         kern = [kernel_call(c) for c in sets]
         plain = [plain_call(c) for c in sets]
-        ms = time_device(kern, TIMING_REPS)
+        ms = kb.time_device(kern, TIMING_REPS)
         graph_ms = time_graph(kern, TIMING_REPS)
         eager_ms = time_events(kern, TIMING_REPS)
-        plain_ms = time_device(plain, TIMING_REPS)
-        plain_graph_ms = time_graph(plain, TIMING_REPS)
+        plain_ms = kb.time_device(plain, TIMING_REPS)
         # one PyTorch call computing the same function on a CSR copy of the
         # same matrix (the port never calls it); damped Jacobi has none:
         # x + omega (b - A x) / diag needs a product and two more passes
@@ -402,36 +405,65 @@ def main() -> int:
             if not err <= LIBRARY_RTOL:
                 raise AssertionError(f"{LIBRARY_CALL[mode]} disagrees with "
                                      f"the plain {mode}: rel err {err:.3e}")
-            library_ms = time_device(libs, TIMING_REPS)
+            library_ms = kb.time_device(libs, TIMING_REPS)
             library_eager_ms = time_events(libs, TIMING_REPS)
             del libs, got, want
         del sets, kern, plain
-        # each input read once, the output written once; operations per
-        # element: diag product + D multiply-adds (+1 residual, +4 Jacobi)
-        vec = n_main * m
-        nbytes = item * (n_main * (D + 1) + vec * (2 if mode == "mv" else 3))
-        nops = vec * (2 * D + 1 + {"mv": 0, "residual": 1, "jacobi": 4}[mode])
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * nops / FP32_OPS_PER_S
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log("timing", f"dia_stencil {mode} n={n_main} m={m} {MAIN_DTYPE}: "
-            f"device {ms:.4f} ms (graph replay {graph_ms:.4f}, eager "
-            f"{eager_ms:.4f}), bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nbytes} B at 3.35 TB/s; {nops} flop at 67 TFLOP/s), "
-            f"{100 * bound_ms / ms:.1f}% of bound; plain device "
-            f"{plain_ms:.4f} ms (graph replay {plain_graph_ms:.4f}); "
+        bound_ms, bound_by, nbytes, nops = kb.bound(n_main, m, D, mode, item)
+        variant = "wide" if n_main >= dk.WIDE_MIN_ROWS else "narrow"
+        log("timing", f"dia_stencil {mode} ({variant}) n={n_main} m={m} "
+            f"{MAIN_DTYPE}: device {ms:.5f} ms (graph replay "
+            f"{graph_ms:.5f}, eager {eager_ms:.5f}), bound {bound_ms:.5f} ms "
+            f"by {bound_by} ({nbytes} B at 3.35 TB/s; {nops} flop at 67 "
+            f"TFLOP/s), {100 * bound_ms / ms:.1f}% of bound; plain device "
+            f"{plain_ms:.5f} ms; "
             + ("library: none for jacobi (no single call)"
                if library_ms is None else
-               f"{LIBRARY_CALL[mode]} CSR device {library_ms:.4f} ms "
-               f"(eager {library_eager_ms:.4f})"))
+               f"{LIBRARY_CALL[mode]} CSR device {library_ms:.5f} ms "
+               f"(eager {library_eager_ms:.5f})"))
         kernels.append({
             "name": f"dia_stencil.{mode}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-            "launches": launches[mode], "max_abs_err": errors[mode],
+            "launches": launches[mode],
+            "max_abs_err": max(v for (_, md), v in errors.items()
+                               if md == mode),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
+
+    # every smoothed AMG level: Jacobi and residual device ms per launch
+    # (the variant the dispatch takes), the bound, and launches x (time -
+    # bound) per step
+    log("levels", "lvl rows variant | jacobi: launches/step ms bound share "
+        "| residual: launches/step ms bound share | excess ms/step")
+    total = {"ms": 0.0, "bound": 0.0}
+    for lvl, (n, offsets) in enumerate(shapes):
+        variant = "wide" if n >= dk.WIDE_MIN_ROWS else "narrow"
+        cells_ = []
+        excess = 0.0
+        for mode in ("jacobi", "residual"):
+            ops = []
+            for k in range(TIMING_COPIES):
+                coef, diag = kb.random_operator(n, offsets, dtype, device,
+                                                seed=30 + k)
+                x, b = kb.random_vectors(n, 1, dtype, device, seed=40 + k)
+                ops.append((coef, diag, x, b))
+            omega = 0.7 if mode == "jacobi" else None
+            t = kb.time_device(
+                [lambda o=o: dk.dia_stencil(offsets, mode, o[0], o[1], o[2],
+                                            b=o[3], omega=omega)
+                 for o in ops], LEVEL_REPS)
+            bnd = kb.bound(n, 1, len(offsets), mode, item)[0]
+            per = per_step(variant, mode, n)
+            excess += per * (t - bnd)
+            total["ms"] += per * t
+            total["bound"] += per * bnd
+            cells_.append(f"{per:5g} {t:.5f} {bnd:.5f} {100 * bnd / t:5.1f}%")
+            del ops
+        log("levels", f"L{lvl:<2d} {n:8d} {variant:6s} | {cells_[0]} | "
+            f"{cells_[1]} | {excess:.4f}")
+    log("levels", f"jacobi + residual over the levels: {total['ms']:.4f} "
+        f"ms/step of kernel time against a bound of {total['bound']:.4f}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

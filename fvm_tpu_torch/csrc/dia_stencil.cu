@@ -1,140 +1,219 @@
-// Fused DIA stencil for Hopper (sm_90a), float32 and float64.
+// dia_stencil: the two dispatched variants, wide and narrow.
 //
-// Replaces the TPU kernel fvm_tpu/ops/pallas_kernels.py:_dia_kernel
-// (pl.pallas_call at line 218).  For each row i of an n-row operator with
-// a static set of D <= 16 signed offsets:
+// See dia_stencil.cuh for what it computes.  Compiled once per variant and
+// element type: -DDIA_NARROW selects narrow, -DDIA_F64 double; the C entry
+// point is dia_{wide,narrow}_{f32,f64}.  The wrapper takes wide from
+// WIDE_MIN_ROWS rows on (ops/dia_kernel.py), narrow below.
 //
-//   Ax[i] = diag[i] * x[i] + sum_k coef[k, i] * x[i + off[k]]   (x = 0 outside [0, n))
+// What bounds it.  On the fine level (1M rows) a call moves ~(D + 4) n
+// words and is bound by HBM bytes; that takes ~18 KB in flight per SM
+// (3.35 TB/s x ~0.7 us / 132).  On the coarse AMG levels (512 to 131K
+// rows) the operator sits in L2 and the time is the kernel's chain of
+// dependent memory round trips.  The first port of this kernel lost on
+// both counts: a runtime-D offset loop (one coef/x round trip per offset,
+// ~2 loads in flight per thread) and scalar loads.
 //
-//   mode 0 (mv):       y = Ax
-//   mode 1 (residual): y = b - Ax
-//   mode 2 (jacobi):   y = x + omega * (b - Ax) / diag
+// Design, both variants (each choice measured on an NVIDIA H100 80GB HBM3
+// at 700 W; scripts/dia_ab.py times both against an earlier commit's
+// kernel, and PERF.md holds the numbers):
+// - The offset loop is unrolled at compile time (to DMAX = 4 or 16, with a
+//   uniform k < D predicate) and every load of a thread's rows is issued
+//   before the first product uses one: one round trip instead of ~D.
+// - x, b and y may lie at any base address.  When any of them is not
+//   16-byte aligned a uniform flag sends their accesses through scalar
+//   loads and stores inside the same kernel; the ragged last group of rows
+//   is predicated.
+// - A plain one-group-per-thread grid, no persistence.
 //
-// x, b and y are row-major (n, m) with m = 1..3 right-hand sides; coef is
-// (D, n) row-major.  The bound is memory traffic: each call reads diag,
-// the D coefficient rows, x (and b) and writes y once, ~2(D+1)m flops per
-// row.  One thread per row: coef[k, i] and diag[i] are loaded once per row
-// and coalesced across the warp; the m right-hand sides accumulate in
-// registers.  The x reads at i + off[k] are coalesced as well, and their
-// reuse by neighbouring rows (offsets reach +-nx = 1024 rows at the 1M-cell
-// cavity, so a shared-memory tile would be mostly halo) is left to the
-// 50 MB L2, which holds the whole vector.
+// wide (large levels): R consecutive rows per thread, 16-byte accesses.
+//   For m = 1, R = 16 / sizeof(T) (4 in float32): coef and diag are one
+//   16-byte load per offset, x, b and y one each; x at i + d is one more
+//   where R divides d (the +-nx offsets), else two shifted in registers
+//   (the +-1 offsets).  This keeps several times the bytes in flight per
+//   thread that one row would (fine-level Jacobi 0.0130 ms against 0.0176
+//   with one row).  For m >= 2, R = 1, so there wide compiles to the same
+//   one-row-per-thread code as narrow: on the interleaved (n, 2) momentum
+//   vectors one row per thread (0.0132 ms) beat R = 2 with float4 over two
+//   rows (0.0158) and R = 4 (0.0149).
+// narrow (small levels): one row per thread.  On a level that fits in a
+//   few waves the chain per thread is the time: the wide variant's four
+//   rows per thread (four IEEE divisions in Jacobi) cost more than its
+//   wider loads save.
 //
-// Built with -fmad=false: each product and sum is rounded on its own, in
-// the same order as the plain PyTorch version (diag term first, then the
-// offsets in order), so the two agree bit for bit on the same inputs.
-//
-// C interface, bound with ctypes: the launcher copies the host offsets
-// into the kernel's parameter block, launches on the caller's stream and
-// returns cudaGetLastError().
+// A third design was measured and not kept (PERF.md): persistent CTAs fed
+// by TMA bulk copies through a 3-stage shared-memory ring, the counterpart
+// of the Pallas kernel's double-buffered halo DMA.  It lost to these two at
+// every level of the 1024^2 cavity and on the 2048^2 and 4096^2 fine
+// levels.
 
-#include <cuda_runtime.h>
+#include "dia_stencil.cuh"
 
-#define MAX_OFFSETS 16
-#define THREADS 256
+#define DIRECT_THREADS 256
 
-struct Offsets {
-  int d[MAX_OFFSETS];
-};
+// the variant's names: C entry point and kernel (as profiles show it)
+#ifdef DIA_NARROW
+#define DIRECT_ENTRY DIA_ENTRY(dia_narrow)
+#define DIRECT_KERNEL dia_narrow_kernel
+#else
+#define DIRECT_ENTRY DIA_ENTRY(dia_wide)
+#define DIRECT_KERNEL dia_wide_kernel
+#endif
 
-template <typename T, int M, int MODE>
-__global__ void __launch_bounds__(THREADS)
-dia_stencil_kernel(const T* __restrict__ coef, const T* __restrict__ diag,
-                   const T* __restrict__ x, const T* __restrict__ b,
-                   T* __restrict__ y, long long n, Offsets off, int D,
-                   T omega) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const T dg = diag[i];
-    T acc[M];
+template <typename T, int M>
+__host__ __device__ constexpr int direct_rows() {
+#ifdef DIA_NARROW
+  return 1;
+#else
+  return M == 1 ? (int)(16 / sizeof(T)) : 1;
+#endif
+}
+
+// K consecutive elements starting at element e0 of an array of `len`,
+// 0 past its end; 16-byte vector loads when `vec`
+template <typename T, int K>
+__device__ __forceinline__ void load_span(const T* __restrict__ p,
+                                          long long e0, long long len,
+                                          bool vec, T* out) {
+  if (vec) {
+    vload<T, K>(p + e0, out);
+  } else {
 #pragma unroll
-    for (int j = 0; j < M; ++j) acc[j] = dg * x[i * M + j];
-    for (int k = 0; k < D; ++k) {
-      const T ck = coef[(long long)k * n + i];
-      const long long c = i + off.d[k];
-      if (c >= 0 && c < n) {
+    for (int e = 0; e < K; ++e) out[e] = e0 + e < len ? p[e0 + e] : T(0);
+  }
+}
+
+template <typename T, int M, int MODE, int DMAX>
+__global__ void __launch_bounds__(DIRECT_THREADS)
+DIRECT_KERNEL(const T* __restrict__ coef, long long ld,
+              const T* __restrict__ diag, const T* __restrict__ x,
+              const T* __restrict__ b, T* __restrict__ y, long long n,
+              Offsets off, int D, T omega, int aligned) {
+  constexpr int R = direct_rows<T, M>();  // rows per thread
+  constexpr int E = R * M;                // elements per thread
+  // R rows of coef and diag are one 16-byte vector
+  constexpr bool VROW = R * sizeof(T) == 16;
+  // R rows of x, b and y are whole 16-byte vectors
+  constexpr bool VX = R > 1 && E * sizeof(T) % 16 == 0;
+  const long long groups = (n + R - 1) / R;
+  const long long step = (long long)gridDim.x * DIRECT_THREADS;
+  for (long long g = (long long)blockIdx.x * DIRECT_THREADS + threadIdx.x;
+       g < groups; g += step) {
+    const long long i0 = g * R;
+    const bool full = i0 + R <= n;
+    const bool xvec = VX && full && aligned;
+    T dg[R], xc[E], bb[E], c[DMAX][R], xs[DMAX][E];
+    // every load of the group first ...
+    load_span<T, R>(diag, i0, n, VROW && full, dg);
+    load_span<T, E>(x, i0 * M, n * M, xvec, xc);
+    if (MODE != 0) load_span<T, E>(b, i0 * M, n * M, xvec, bb);
 #pragma unroll
-        for (int j = 0; j < M; ++j) acc[j] = acc[j] + ck * x[c * M + j];
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < D) {
+        const int d = off.d[k];
+        load_span<T, R>(coef + k * ld, i0, n, VROW && full, c[k]);
+        const long long s = i0 + d;
+        const int sh = ((d % R) + R) % R;  // s - sh is a multiple of R
+        if (s >= 0 && s + R <= n) {
+          if (VX && aligned && s - sh + (sh ? 2 * R : R) <= n) {
+            if constexpr (VX)
+              vload_rows<T, M, R>(x + (s - sh) * M, sh, xs[k]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) xs[k][e] = x[s * M + e];
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const bool in = s + r >= 0 && s + r < n;
+#pragma unroll
+            for (int j = 0; j < M; ++j)
+              xs[k][r * M + j] = in ? x[(s + r) * M + j] : T(0);
+          }
+        }
       }
     }
+    // ... then the arithmetic, in the plain version's order
+    T out[E];
 #pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T out;
-      if (MODE == 0) {
-        out = acc[j];
-      } else if (MODE == 1) {
-        out = b[i * M + j] - acc[j];
-      } else {
-        out = x[i * M + j] + omega * (b[i * M + j] - acc[j]) / dg;
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        T acc = dg[r] * xc[r * M + j];
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k)
+          if (k < D) acc = acc + c[k][r] * xs[k][r * M + j];
+        out[r * M + j] = dia_finish<T, MODE>(acc, xc[r * M + j],
+                                             MODE != 0 ? bb[r * M + j] : T(0),
+                                             dg[r], omega);
       }
-      y[i * M + j] = out;
+    }
+    if (xvec) {
+      vstore<T, E>(y + i0 * M, out);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (i0 * M + e < n * M) y[i0 * M + e] = out[e];
     }
   }
 }
 
-template <typename T, int M, int MODE>
-static void launch_one(const T* coef, const T* diag, const T* x, const T* b,
-                       T* y, long long n, const Offsets& off, int D, T omega,
-                       cudaStream_t stream) {
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks < 1) blocks = 1;
+template <typename T, int M, int MODE, int DMAX>
+static void launch(const T* coef, long long ld, const T* diag, const T* x,
+                   const T* b, T* y, long long n, const Offsets& off, int D,
+                   T omega, int aligned, cudaStream_t stream) {
+  constexpr int R = direct_rows<T, M>();
+  const long long groups = (n + R - 1) / R;
+  long long blocks = (groups + DIRECT_THREADS - 1) / DIRECT_THREADS;
   if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL;
-  dia_stencil_kernel<T, M, MODE><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      coef, diag, x, b, y, n, off, D, omega);
+  DIRECT_KERNEL<T, M, MODE, DMAX>
+      <<<(unsigned)blocks, DIRECT_THREADS, 0, stream>>>(
+          coef, ld, diag, x, b, y, n, off, D, omega, aligned);
+}
+
+template <typename T, int M, int MODE>
+static void launch_d(const T* coef, long long ld, const T* diag, const T* x,
+                     const T* b, T* y, long long n, const Offsets& off, int D,
+                     T omega, int aligned, cudaStream_t stream) {
+  if (D <= 4)
+    launch<T, M, MODE, 4>(coef, ld, diag, x, b, y, n, off, D, omega, aligned,
+                          stream);
+  else
+    launch<T, M, MODE, MAX_OFFSETS>(coef, ld, diag, x, b, y, n, off, D, omega,
+                                    aligned, stream);
 }
 
 template <typename T, int M>
-static int launch_mode(const T* coef, const T* diag, const T* x, const T* b,
-                       T* y, long long n, const Offsets& off, int D, int mode,
-                       T omega, cudaStream_t stream) {
+static void launch_mode(const T* coef, long long ld, const T* diag,
+                        const T* x, const T* b, T* y, long long n,
+                        const Offsets& off, int D, int mode, T omega,
+                        int aligned, cudaStream_t stream) {
   switch (mode) {
-    case 0: launch_one<T, M, 0>(coef, diag, x, b, y, n, off, D, omega, stream); break;
-    case 1: launch_one<T, M, 1>(coef, diag, x, b, y, n, off, D, omega, stream); break;
-    case 2: launch_one<T, M, 2>(coef, diag, x, b, y, n, off, D, omega, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0: launch_d<T, M, 0>(coef, ld, diag, x, b, y, n, off, D, omega, aligned, stream); break;
+    case 1: launch_d<T, M, 1>(coef, ld, diag, x, b, y, n, off, D, omega, aligned, stream); break;
+    default: launch_d<T, M, 2>(coef, ld, diag, x, b, y, n, off, D, omega, aligned, stream); break;
   }
-  return 0;
 }
 
-template <typename T>
-static int dia_stencil(const void* coef, const void* diag, const void* x,
-                       const void* b, void* y, long long n, int m,
-                       const int* offsets, int D, int mode, double omega,
-                       void* stream) {
-  if (n < 0 || D < 0 || D > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  Offsets off;
-  for (int k = 0; k < MAX_OFFSETS; ++k) off.d[k] = k < D ? offsets[k] : 0;
-  const T* c = (const T*)coef;
-  const T* dg = (const T*)diag;
-  const T* xx = (const T*)x;
-  const T* bb = (const T*)b;
-  T* yy = (T*)y;
-  cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  switch (m) {
-    case 1: rc = launch_mode<T, 1>(c, dg, xx, bb, yy, n, off, D, mode, (T)omega, s); break;
-    case 2: rc = launch_mode<T, 2>(c, dg, xx, bb, yy, n, off, D, mode, (T)omega, s); break;
-    case 3: rc = launch_mode<T, 3>(c, dg, xx, bb, yy, n, off, D, mode, (T)omega, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+extern "C" int DIRECT_ENTRY(const void* coef, long long ld, const void* diag,
+                            const void* x, const void* b, void* y,
+                            long long n, int m, const int* offsets, int D,
+                            int mode, double omega, void* stream) {
+  int rc = dia_check_args(coef, ld, diag, n, m, D, mode, b);
   if (rc != 0) return rc;
+  if (n == 0) return 0;
+  const Offsets off = dia_offsets(offsets, D);
+  const int aligned =
+      (((uintptr_t)x | (uintptr_t)b | (uintptr_t)y) & 15) == 0;
+  const real* c = (const real*)coef;
+  const real* dg = (const real*)diag;
+  const real* xx = (const real*)x;
+  const real* bb = (const real*)b;
+  real* yy = (real*)y;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m) {
+    case 1: launch_mode<real, 1>(c, ld, dg, xx, bb, yy, n, off, D, mode, (real)omega, aligned, s); break;
+    case 2: launch_mode<real, 2>(c, ld, dg, xx, bb, yy, n, off, D, mode, (real)omega, aligned, s); break;
+    default: launch_mode<real, 3>(c, ld, dg, xx, bb, yy, n, off, D, mode, (real)omega, aligned, s); break;
+  }
   return (int)cudaGetLastError();
-}
-
-extern "C" int dia_stencil_f32(const void* coef, const void* diag,
-                               const void* x, const void* b, void* y,
-                               long long n, int m, const int* offsets, int D,
-                               int mode, double omega, void* stream) {
-  return dia_stencil<float>(coef, diag, x, b, y, n, m, offsets, D, mode,
-                            omega, stream);
-}
-
-extern "C" int dia_stencil_f64(const void* coef, const void* diag,
-                               const void* x, const void* b, void* y,
-                               long long n, int m, const int* offsets, int D,
-                               int mode, double omega, void* stream) {
-  return dia_stencil<double>(coef, diag, x, b, y, n, m, offsets, D, mode,
-                             omega, stream);
 }

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..exceptions import ConfigError
 from ..ops.dia import DIAInfo, DIAMatrix, index_tensor
+from ..ops.dia_kernel import empty_coef
 from ..ops.ell import ELLMatrix
 from .base import LinearSolver, SolveStats, condensed, norm
 
@@ -271,7 +272,9 @@ class _StructuredLevel:
                 v = parts[name].reshape(-1)
                 acc = v if acc is None else acc + v
             coef_rows.append(acc)
-        return DIAMatrix(diag_c, torch.stack(coef_rows), self.coarse_offsets)
+        coef = torch.stack(coef_rows, out=empty_coef(
+            len(coef_rows), self.nC, diag_c.dtype, diag_c.device))
+        return DIAMatrix(diag_c, coef, self.coarse_offsets)
 
 
 def _dense_from_ell(A: ELLMatrix, n: int):

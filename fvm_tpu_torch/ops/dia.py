@@ -155,14 +155,13 @@ class DIAInfo:
 def build_coef(dia: DIAInfo, off, mask):
     """Per-offset DIA coefficients from the slot-leading (K, n) ELL values.
 
-    Returns (coef (D, n) contiguous, fb_vals (n_fb,)); one pass per
-    assembled matrix instead of one per mv."""
+    Returns (coef (D, n) in the kernel's layout, fb_vals (n_fb,)); one
+    pass per assembled matrix instead of one per mv."""
     offv = torch.where(mask, off, 0.0)
+    D, n = len(dia.offsets), off.shape[1]
     coef = torch.stack(
-        [
-            torch.where(dia.bucket == i, offv, 0.0).sum(dim=0)
-            for i in range(len(dia.offsets))
-        ]
+        [torch.where(dia.bucket == i, offv, 0.0).sum(dim=0) for i in range(D)],
+        out=dia_kernel.empty_coef(D, n, offv.dtype, offv.device),
     )
     fb_vals = offv[dia.fb_slots, dia.fb_rows]
     return coef, fb_vals
@@ -218,11 +217,19 @@ class DIAMatrix:
         return self.diag.shape[0]
 
     def prepare(self):
-        """The kernel's operands: contiguous diag and coefficients."""
-        if self.diag.is_contiguous() and self.coef.is_contiguous():
+        """The kernel's operands: an aligned contiguous diag and the
+        coefficients in the kernel's padded layout (``dia_kernel.pack_coef``;
+        ``AMG`` builds its coarse levels in that layout, so this copies
+        nothing there)."""
+        diag_ok = dia_kernel.diag_ready(self.diag)
+        coef_ok = dia_kernel.coef_packed(self.coef)
+        if diag_ok and coef_ok:
             return self
-        return DIAMatrix(self.diag.contiguous(), self.coef.contiguous(),
-                         self.offsets)
+        return DIAMatrix(
+            self.diag if diag_ok else self.diag.clone(
+                memory_format=torch.contiguous_format),
+            self.coef if coef_ok else dia_kernel.pack_coef(self.coef),
+            self.offsets)
 
     def dot(self, a, b):
         return torch.sum(a * b)

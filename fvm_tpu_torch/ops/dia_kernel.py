@@ -19,16 +19,27 @@ one flop per byte, where an H100 stops being memory-bound only at ~20
 float32 flops per byte (67 TFLOP/s over 3.35 TB/s, NVIDIA's data sheet).
 So the least time is those bytes over 3.35 TB/s.
 
-Design (``csrc/dia_stencil.cu``): one thread per row, looping over the m
-right-hand sides with m accumulators in registers; each coef[d, i] and
-diag[i] is loaded once per row, coalesced across the warp.  The x reads at
-i + d are coalesced too; their reuse across the D + 1 offsets of
-neighbouring rows is left to L2 (50 MB holds the whole 1M-cell x), instead
-of the TPU kernel's 128-lane row blocks, halo DMA and lane rolls: here the
-halo is up to +-nx = 1024 rows, so a shared-memory tile would be mostly
-halo.  TMA/cp.async staging is left for a later change.
+Two hand-written variants of one source (``csrc/dia_stencil.cu``; the
+design notes and measurements are in the source), chosen by n alone with
+one compare (``WIDE_MIN_ROWS``):
 
-Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
+- ``wide`` for the large levels, bound by HBM bytes: several consecutive
+  rows per thread with 16-byte loads and stores, every load of a thread's
+  rows issued before the first product (the offset loop unrolled at
+  compile time);
+- ``narrow`` for the small levels, bound by latency: one row per thread,
+  the same unrolled, all-loads-first form.
+
+For m >= 2 right-hand sides ``wide`` also takes one row per thread, so
+there the two variants are the same code under two names.
+
+Operand layout: ``coef`` is the (D, n) view ``storage[:, :n]`` of a
+(D, ld) storage whose row stride ld is a multiple of ``COEF_ALIGN``
+elements (``empty_coef``, ``pack_coef``), as the Pallas ``pack`` pads, so
+every coefficient row starts 16-byte aligned; ``diag`` is contiguous and
+16-byte aligned.  x, b and y may lie at any base address.
+
+Dispatch is by the tensor's device: a CUDA tensor launches a kernel (or
 raises), a CPU tensor takes the plain version.  There is no other switch.
 """
 
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,29 +56,57 @@ import torch
 import torch.nn.functional as F
 
 MODES = ("mv", "residual", "jacobi")
+VARIANTS = ("narrow", "wide")
 MAX_OFFSETS = 16
 MAX_RHS = 3
+# coefficient row stride granule in elements (128 B in float32)
+COEF_ALIGN = 32
+# levels with at least this many rows take the wide variant (measured
+# crossover on the 1024^2 cavity's hierarchy: 131072 rows narrow, 262144
+# wide; PERF.md)
+WIDE_MIN_ROWS = 1 << 18
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "dia_stencil.cu")
+_VARIANT_FLAGS = {"narrow": ["-DDIA_NARROW"], "wide": []}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 # -fmad=false: no FMA contraction, so the kernel rounds like the plain
 # version and the two agree bit for bit
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+_DTYPES = {torch.float32: ("f32", []), torch.float64: ("f64", ["-DDIA_F64"])}
+_MODE_INDEX = {m: i for i, m in enumerate(MODES)}
 
 
-_C_OFFSETS = {}
+def coef_ld(n: int) -> int:
+    """Row stride of the coefficient storage for n rows."""
+    return -(-max(n, 1) // COEF_ALIGN) * COEF_ALIGN
 
 
-def _c_offsets(offsets):
-    """The offsets as the C int array the launcher copies into the kernel's
-    parameter block, made once per offsets tuple."""
-    arr = _C_OFFSETS.get(offsets)
-    if arr is None:
-        arr = (ctypes.c_int * max(len(offsets), 1))(*offsets)
-        _C_OFFSETS[offsets] = arr
-    return arr
+def empty_coef(D: int, n: int, dtype, device) -> torch.Tensor:
+    """An uninitialised (D, n) coefficient operand in the kernel's layout."""
+    return torch.empty((D, coef_ld(n)), dtype=dtype, device=device)[:, :n]
+
+
+def pack_coef(coef: torch.Tensor) -> torch.Tensor:
+    """``coef`` (D, n) copied into the kernel's layout."""
+    out = empty_coef(coef.shape[0], coef.shape[1], coef.dtype, coef.device)
+    return out.copy_(coef)
+
+
+def coef_packed(coef: torch.Tensor) -> bool:
+    """Whether a (D, n) tensor is in the kernel's layout: unit column
+    stride, row stride a multiple of ``COEF_ALIGN`` and at least n, a
+    16-byte aligned base."""
+    return (coef.ndim == 2 and coef.stride(1) == 1
+            and coef.stride(0) % COEF_ALIGN == 0
+            and coef.stride(0) >= coef.shape[1]
+            and coef.data_ptr() % 16 == 0)
+
+
+def diag_ready(diag: torch.Tensor) -> bool:
+    """Whether ``diag`` is contiguous with a 16-byte aligned base."""
+    return diag.is_contiguous() and diag.data_ptr() % 16 == 0
 
 
 def dia_stencil_plain(offsets, mode, coef, diag, x, b=None, omega=None):
@@ -89,107 +129,175 @@ def dia_stencil_plain(offsets, mode, coef, diag, x, b=None, omega=None):
     return x + omega * (b - ax) / dg
 
 
-_lib = None
+_fns = None
 _lib_lock = threading.Lock()
+_C_OFFSETS = {}
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/dia_stencil.cu`` with nvcc into ``build/kernels`` (on
-    first use, from the repository's sources only) and load it.  With
-    ``verbose`` the ptxas register/spill report is printed."""
-    global _lib
+def _c_offsets(offsets):
+    """(C int array of the offsets, D), made once per offsets tuple."""
+    spec = _C_OFFSETS.get(offsets)
+    if spec is None:
+        offs = tuple(int(d) for d in offsets)
+        spec = ((ctypes.c_int * max(len(offs), 1))(*offs), len(offs))
+        _C_OFFSETS[offsets] = spec
+    return spec
+
+
+def _bind(so: str, name: str):
+    """The C entry point ``name`` of the library ``so``, with its
+    argument types."""
+    fn = getattr(ctypes.CDLL(so), name)
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong,  # coef ld
+        ctypes.c_void_p, ctypes.c_void_p,  # diag x
+        ctypes.c_void_p, ctypes.c_void_p,  # b y
+        ctypes.c_longlong, ctypes.c_int,  # n m
+        ctypes.c_void_p, ctypes.c_int,  # host offsets, D
+        ctypes.c_int, ctypes.c_double,  # mode omega
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptxas_summary(report: str) -> str:
+    """One line from a ptxas ``-v`` report: kernels, registers per thread
+    (range) and the largest spill."""
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", report)]
+    spill = [int(v) for v in re.findall(r"(\d+) bytes spill stores", report)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"largest spill {max(spill, default=0)} bytes")
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile the two variants, once per element type, with nvcc into
+    ``build/kernels`` (on first use, from the repository's sources only;
+    the four compilations run in parallel) and load them.  Returns the
+    entry points keyed by (variant, dtype).  With ``verbose`` one ptxas
+    summary line per library is printed."""
+    global _fns
     with _lib_lock:
-        if _lib is not None:
-            return _lib
+        if _fns is not None:
+            return _fns
         os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, "libdia_stencil.so")
-        # build under a private name, then rename: a process that loads the
-        # library never sees another process's half-written file
-        tmp = f"{so}.{os.getpid()}.tmp"
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        jobs = []
+        for variant, vdefs in _VARIANT_FLAGS.items():
+            for dtype, (suffix, defs) in _DTYPES.items():
+                so = os.path.join(BUILD_DIR,
+                                  f"libdia_{variant}_{suffix}.so")
+                # build under a private name, then rename: a process that
+                # loads the library never sees another's half-written file
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [nvcc, *_NVCC_FLAGS, *vdefs, *defs, "-Xptxas", "-v",
+                       "-o", tmp, SOURCE]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                jobs.append((variant, dtype, suffix, so, tmp, proc))
+        fns, failed, report = {}, [], []
+        for variant, dtype, suffix, so, tmp, proc in jobs:
+            out = proc.communicate()[0]
+            report.append(f"{variant}/{suffix}: {ptxas_summary(out)}\n")
+            if proc.returncode != 0:
+                failed.append(f"{variant}/{suffix} ({proc.returncode}):\n"
+                              f"{out}")
+                continue
+            os.replace(tmp, so)
+            fns[variant, dtype] = _bind(so, f"dia_{variant}_{suffix}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        lib = ctypes.CDLL(so)
-        for name in ("dia_stencil_f32", "dia_stencil_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,  # coef diag x b y
-                ctypes.c_longlong, ctypes.c_int,  # n m
-                ctypes.c_void_p, ctypes.c_int,  # host offsets, D
-                ctypes.c_int, ctypes.c_double,  # mode omega
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+            print("".join(report), end="")
+        _fns = fns
+        return fns
 
 
-def _check(name, t, dtype, device, shape):
-    if t.dtype != dtype or t.device != device:
-        raise ValueError(f"dia_stencil: {name} is {t.dtype} on {t.device}, "
-                         f"expected {dtype} on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"dia_stencil: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"dia_stencil: {name} is not contiguous")
-
-
-def _launch(offsets, mode, coef, diag, x, b, omega):
-    n = x.shape[0]
-    m = 1 if x.ndim == 1 else x.shape[1]
-    offsets = tuple(int(d) for d in offsets)
-    D = len(offsets)
+def check_operands(offsets, mode, coef, diag, x, b=None, omega=None) -> int:
+    """Raise ``ValueError`` on what the kernel does not take (a pure
+    function of dtypes, devices, shapes, strides and base alignment);
+    returns the number of right-hand sides m."""
+    if mode not in _MODE_INDEX:
+        raise ValueError(f"dia_stencil: unknown mode {mode!r}")
     dtype, device = x.dtype, x.device
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in _DTYPES:
         raise ValueError(f"dia_stencil: unsupported dtype {dtype}")
-    if x.ndim not in (1, 2) or not 1 <= m <= MAX_RHS:
+    if x.ndim == 1:
+        m = 1
+    elif x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS:
+        m = x.shape[1]
+    else:
         raise ValueError(f"dia_stencil: x of shape {tuple(x.shape)} "
                          f"(need (n,) or (n, m), m <= {MAX_RHS})")
+    n = x.shape[0]
+    D = len(offsets)
     if D > MAX_OFFSETS:
         raise ValueError(f"dia_stencil: {D} offsets > {MAX_OFFSETS}")
-    _check("x", x, dtype, device, x.shape)
-    _check("coef", coef, dtype, device, (D, n))
-    _check("diag", diag, dtype, device, (n,))
-    if mode != "mv":
-        if b is None:
-            raise ValueError(f"dia_stencil: mode {mode!r} needs b")
-        _check("b", b, dtype, device, x.shape)
+    for name, t, shape in (("x", x, x.shape), ("coef", coef, (D, n)),
+                           ("diag", diag, (n,)), ("b", b, x.shape)):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(f"dia_stencil: {name} is {t.dtype} on "
+                             f"{t.device}, expected {dtype} on {device}")
+        if t.shape != shape:
+            raise ValueError(f"dia_stencil: {name} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous() or (b is not None and not b.is_contiguous()):
+        raise ValueError("dia_stencil: x and b must be contiguous")
+    if not coef_packed(coef):
+        raise ValueError(
+            f"dia_stencil: coef with strides {coef.stride()} at base "
+            f"{coef.data_ptr() % 16} mod 16 is not in the kernel layout "
+            f"(row stride a multiple of {COEF_ALIGN} elements, 16-byte "
+            f"aligned base: pack_coef)")
+    if not diag_ready(diag):
+        raise ValueError("dia_stencil: diag must be contiguous with a "
+                         "16-byte aligned base")
+    if mode != "mv" and b is None:
+        raise ValueError(f"dia_stencil: mode {mode!r} needs b")
     if mode == "jacobi" and omega is None:
         raise ValueError("dia_stencil: mode 'jacobi' needs omega")
-    lib = _lib if _lib is not None else build()
-    fn = lib.dia_stencil_f32 if dtype == torch.float32 else lib.dia_stencil_f64
+    return m
+
+
+def _launch(offsets, mode, coef, diag, x, b, omega, variant=None):
+    """Launch one kernel.  ``variant`` None is the dispatch by n; a name
+    forces that variant (to hold each against the plain version)."""
+    m = check_operands(offsets, mode, coef, diag, x, b, omega)
+    c_offs, D = _c_offsets(offsets)
+    n = x.shape[0]
+    if variant is None:
+        variant = "wide" if n >= WIDE_MIN_ROWS else "narrow"
+    fn = (_fns if _fns is not None else build())[variant, x.dtype]
     y = torch.empty_like(x)
-    args = (coef.data_ptr(), diag.data_ptr(), x.data_ptr(),
-            None if b is None else b.data_ptr(), y.data_ptr(),
-            n, m, _c_offsets(offsets), D, MODES.index(mode),
-            0.0 if omega is None else float(omega))
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    args = (coef.data_ptr(), coef.stride(0), diag.data_ptr(), x.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), n, m, c_offs,
+            D, _MODE_INDEX[mode], 0.0 if omega is None else float(omega))
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
-        with torch.cuda.device(device):  # launch on the operands' card
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(idx):  # launch on the operands' card
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"dia_stencil launch failed: CUDA error {err}")
     dia_stencil.launches[mode] += 1
+    key = (variant, mode, n)
+    dia_stencil.shapes[key] = dia_stencil.shapes.get(key, 0) + 1
     return y
 
 
 def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
     """Fused DIA op on (n,) or (n, m) vectors; returns x's shape.
 
-    ``coef`` (D, n) and ``diag`` (n,) are the matrix's prepared, contiguous
-    operands (``ELLMatrix.prepare``, ``DIAMatrix.prepare``).  A CUDA ``x``
-    launches the CUDA kernel (raising on anything it does not take); a CPU
-    ``x`` runs :func:`dia_stencil_plain`."""
-    if mode not in MODES:
+    ``coef`` (D, n) and ``diag`` (n,) are the matrix's prepared operands
+    in the kernel's layout (``ELLMatrix.prepare``, ``DIAMatrix.prepare``).
+    A CUDA ``x`` launches a CUDA kernel (raising on anything it does not
+    take); a CPU ``x`` runs :func:`dia_stencil_plain`."""
+    if mode not in _MODE_INDEX:
         raise ValueError(f"dia_stencil: unknown mode {mode!r}")
     if x.device.type == "cpu":
         return dia_stencil_plain(offsets, mode, coef, diag, x, b=b, omega=omega)
@@ -198,10 +306,22 @@ def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
     return _launch(offsets, mode, coef, diag, x, b, omega)
 
 
-# launches of the CUDA kernel, per mode (the plain version counts nothing)
+# launches of the CUDA kernels per mode, and per (variant, mode, rows): the
+# second shows which variant took each level (the plain version counts
+# nothing)
 dia_stencil.launches = {m: 0 for m in MODES}
+dia_stencil.shapes = {}
+
+
+def variant_launches() -> dict:
+    """Launches per variant since the last reset."""
+    out = {v: 0 for v in VARIANTS}
+    for (variant, _, _), count in dia_stencil.shapes.items():
+        out[variant] += count
+    return out
 
 
 def reset_launches() -> None:
     for m in MODES:
         dia_stencil.launches[m] = 0
+    dia_stencil.shapes.clear()

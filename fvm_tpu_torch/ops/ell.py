@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from .dia import build_coef, dia_apply_coef
+from .dia_kernel import diag_ready
 
 
 @dataclass(eq=False)
@@ -30,9 +31,9 @@ class ELLMatrix:
     cols: torch.Tensor  # (K, n) int64; padded slots point at own row
     mask: torch.Tensor  # (K, n) bool
     dia: object = None  # ops.dia.DIAInfo
-    # per-offset DIA coefficients (D, n), contiguous: the kernel's operand
-    # layout, the role of the JAX dia_pk; and the rare-offset fallback
-    # values.  Set by prepare()
+    # per-offset DIA coefficients (D, n) in the kernel's padded layout
+    # (``dia_kernel.empty_coef``), the role of the JAX dia_pk; and the
+    # rare-offset fallback values.  Set by prepare()
     dia_coef: torch.Tensor | None = None
     dia_fb_vals: torch.Tensor | None = None
 
@@ -52,8 +53,10 @@ class ELLMatrix:
                 "unstructured meshes is not ported yet"
             )
         coef, fb = build_coef(self.dia, self.off, self.mask)
-        return self.replace(diag=self.diag.contiguous(), dia_coef=coef,
-                            dia_fb_vals=fb)
+        diag = self.diag
+        if not diag_ready(diag):
+            diag = diag.clone(memory_format=torch.contiguous_format)
+        return self.replace(diag=diag, dia_coef=coef, dia_fb_vals=fb)
 
     def condense(self, b):
         """Eliminate boundary-ghost/padding rows exactly before the solve.

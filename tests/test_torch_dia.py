@@ -47,9 +47,13 @@ def _kw(mode, b, omega=0.8):
     return kw
 
 
-def _plain(offsets, mode, coef, diag, x, b, omega=0.8):
+def _plain(offsets, mode, coef, diag, x, b, omega=0.8, layout="padded"):
+    """The port's CPU path; ``layout`` "padded" hands it the (D, n) view of
+    the kernel's padded coefficient storage (``pack_coef``), "contiguous"
+    a plain contiguous (D, n) tensor."""
     t = torch.from_numpy
-    y = dk.dia_stencil(offsets, mode, t(coef), t(diag), t(x),
+    c = dk.pack_coef(t(coef)) if layout == "padded" else t(coef)
+    y = dk.dia_stencil(offsets, mode, c, t(diag), t(x),
                        **_kw(mode, None if b is None else t(b), omega))
     return y.numpy()
 
@@ -67,13 +71,14 @@ def _pallas(offsets, mode, coef, diag, x, b, omega=0.8):
                                         **_kw(mode, j(b), omega)))
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "padded"])
 @pytest.mark.parametrize("mode", dk.MODES)
 @pytest.mark.parametrize("nrhs", [0, 2])
-def test_plain_matches_fused_apply_and_pallas(mode, nrhs):
+def test_plain_matches_fused_apply_and_pallas(mode, nrhs, layout):
     offsets = (-70, -1, 1, 70)
     coef, diag, x, b = _case(5000, offsets, nrhs)
     before = dict(dk.dia_stencil.launches)
-    got = _plain(offsets, mode, coef, diag, x, b)
+    got = _plain(offsets, mode, coef, diag, x, b, layout=layout)
     assert dk.dia_stencil.launches == before  # the CPU path launches nothing
     assert got.shape == x.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, _xla(offsets, mode, coef, diag, x, b),
@@ -147,6 +152,55 @@ def test_dia_matrix_matches_dense():
     want = x + 0.6 * (b - dense @ x) / diag[:, None]
     np.testing.assert_allclose(A.jacobi_step(t(x), t(b), 0.6).numpy(), want,
                                rtol=RTOL64, atol=RTOL64)
+
+
+def test_pack_coef_layout():
+    """The kernel's coefficient layout: a (D, n) view of (D, ld) storage,
+    ld the next multiple of COEF_ALIGN, a 16-byte aligned base, the same
+    values."""
+    coef = torch.from_numpy(_case(1027, (-33, -1, 1, 33), 0)[0])
+    packed = dk.pack_coef(coef)
+    assert packed.shape == coef.shape and torch.equal(packed, coef)
+    assert packed.stride() == (1056, 1) and dk.coef_ld(1027) == 1056
+    assert dk.coef_packed(packed) and not dk.coef_packed(coef)
+    assert dk.coef_packed(dk.pack_coef(coef[:, :64]))  # n a multiple of 32
+    assert dk.coef_ld(1) == dk.COEF_ALIGN
+
+
+def test_check_operands_takes_and_refuses():
+    """The wrapper's operand check is a function of dtypes, devices,
+    shapes, strides and base alignment, so it runs here on CPU tensors."""
+    n, offsets = 1027, (-33, -1, 1, 33)
+    coef, diag, x, b = (torch.from_numpy(a)
+                        for a in _case(n, offsets, 0, dtype=np.float64))
+    coef = dk.pack_coef(coef)
+    x3 = torch.zeros((n, 3), dtype=torch.float64)
+    assert dk.check_operands(offsets, "mv", coef, diag, x) == 1
+    assert dk.check_operands(offsets, "jacobi", coef, diag, x3, b=x3,
+                             omega=0.7) == 3
+    # x and b at any base address
+    xs = torch.zeros(n + 1, dtype=torch.float64)
+    assert dk.check_operands(offsets, "residual", coef, diag, xs[1:],
+                             b=xs[:n]) == 1
+    wide = torch.zeros((4, n + 1), dtype=torch.float64)
+    bad = [
+        (dict(coef=coef.contiguous()), "layout"),
+        (dict(coef=dk.pack_coef(wide)[:, 1:]), "layout"),
+        (dict(diag=torch.zeros(n + 1, dtype=torch.float64)[1:]), "aligned"),
+        (dict(x=torch.zeros((n, 2), dtype=torch.float64)[:, 0]), "contiguous"),
+        (dict(x=x.float()), "float64"),
+        (dict(x=torch.zeros((n, 4), dtype=torch.float64)), "m <= 3"),
+        (dict(x=x.to(torch.int64)), "dtype"),
+        (dict(offsets=tuple(range(1, 18))), "offsets"),
+        (dict(mode="residual"), "needs b"),
+        (dict(mode="jacobi", b=b), "needs omega"),
+        (dict(diag=diag[:-1]), "shape"),
+    ]
+    for change, match in bad:
+        kw = dict(offsets=offsets, mode="mv", coef=coef, diag=diag, x=x)
+        kw.update(change)
+        with pytest.raises(ValueError, match=match):
+            dk.check_operands(**kw)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -27,6 +27,8 @@ from fvm_tpu_torch.linear import (AMG as TAMG, BiCGStab as TBiCGStab,
                                   JacobiSolver as TJacobi)
 from fvm_tpu_torch.linear import krylov as tkrylov
 from fvm_tpu_torch.models import FlowModel as TFlow, ThermalModel as TThermal
+from fvm_tpu_torch.ops import dia_kernel as dk
+from fvm_tpu_torch.ops.dia import DIAMatrix
 
 N = 32
 SOL_RTOL = 1e-10
@@ -194,6 +196,11 @@ def test_amg_hierarchy_matches(systems, system):
         _close(tl.tail_rows, jl.tail_rows, 0)
         _close(tl.tail_agg, jl.tail_agg, 0)
     assert len(tmats) == len(jmats)
+    # every level's operands in the kernel's padded layout, no copy needed
+    assert dk.coef_packed(tmats[0].dia_coef) and dk.diag_ready(tmats[0].diag)
+    for tm in tmats[1:]:
+        assert dk.coef_packed(tm.coef) and dk.diag_ready(tm.diag)
+        assert tm.prepare() is tm
     for jm, tm in zip(jmats[1:], tmats[1:]):
         assert tm.offsets == jm.offsets
         _close(tm.diag, jm.diag, COEF_RTOL)
@@ -216,3 +223,37 @@ def test_amg_rejects_unstructured_graph():
     mask = np.ones((n, K), dtype=bool)
     with pytest.raises(NotImplementedError, match="greedy"):
         TAMG().setup_structure(cols, mask, "cpu")
+
+
+def test_dia_matrix_prepare_packs_once():
+    """``DIAMatrix.prepare`` repacks a contiguous (D, n) operand into the
+    kernel's layout (same values, same products) and returns a prepared
+    matrix as it is."""
+    rng = np.random.default_rng(3)
+    n, offsets = 200, (-10, -1, 1, 10)
+    coef = torch.from_numpy(rng.normal(size=(4, n)))
+    diag = torch.from_numpy(rng.normal(size=n) + 8.0)
+    A = DIAMatrix(diag, coef, offsets)
+    P = A.prepare()
+    assert P is not A and dk.coef_packed(P.coef) and torch.equal(P.coef, coef)
+    assert P.prepare() is P
+    x = torch.from_numpy(rng.normal(size=(n, 2)))
+    torch.testing.assert_close(P.mv(x), A.mv(x), rtol=0, atol=0)
+    np.testing.assert_allclose(P.to_dense().numpy(), A.to_dense().numpy(),
+                               rtol=0, atol=0)
+
+
+def test_cavity_level_shapes_match_the_hierarchy():
+    """``kernel_bench.cavity_level_shapes``, which the card tests and
+    ``chip_smoke.py`` time the kernel at, is the hierarchy ``AMG`` builds
+    for the cavity: the condensed fine level and every smoothed coarse
+    level."""
+    from fvm_tpu_torch.tools.kernel_bench import cavity_level_shapes
+
+    dm = tfvm.mesh.build_device_mesh(tfvm.mesh.generate.quad_2d(64, 64),
+                                     dtype="float64", device="cpu")
+    levels = TAMG(coarse_size=256).setup_structure(*dm.host_cf(), "cpu")
+    fine = dm.dia.cond_plan.dia2
+    real = [(dm.n_cells, sorted(fine.offsets))] + [
+        (lev.nC, sorted(lev.coarse_offsets)) for lev in levels[:-1]]
+    assert [(n, sorted(o)) for n, o in cavity_level_shapes(64)] == real
