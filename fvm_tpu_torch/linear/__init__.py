@@ -1,3 +1,3 @@
 from .base import LinearSolver, SolveStats, norm
 from .krylov import BiCGStab, JacobiSolver
-from .amg import AMG
+from .amg import AMG, DirectSolver

@@ -174,22 +174,28 @@ def fused_apply(offsets, diag, coef, x, b=None, omega=None, mode="mv",
     mode "mv": A x;  "residual": b - A x;  "jacobi": x + omega (b - A x)
     / diag.  The bulk op is ``dia_stencil`` (kernel on a CUDA tensor,
     plain version on a CPU tensor); the rare fallback entries are applied
-    afterwards as a small scatter-add (``index_add_`` sums repeated rows).
+    afterwards (``apply_fallback``).
     """
     y = dia_kernel.dia_stencil(offsets, mode, coef, diag, x, b=b,
                                omega=omega)
     if fb_rows is not None and fb_rows.shape[0]:
-        contrib = (fb_vals * x[fb_cols] if x.ndim == 1
-                   else fb_vals[:, None] * x[fb_cols])
-        if mode == "mv":
-            y = y.index_add(0, fb_rows, contrib)
-        elif mode == "residual":
-            y = y.index_add(0, fb_rows, -contrib)
-        else:
-            dfb = diag[fb_rows]
-            corr = omega * contrib / (dfb if x.ndim == 1 else dfb[:, None])
-            y = y.index_add(0, fb_rows, -corr)
+        y = apply_fallback(y, mode, diag, x, omega, fb_rows, fb_cols, fb_vals)
     return y
+
+
+def apply_fallback(y, mode, diag, x, omega, fb_rows, fb_cols, fb_vals):
+    """Add the fallback entries (offsets outside the DIA set) to a fused
+    op's result ``y``: a small scatter-add (``index_add`` sums repeated
+    rows), in the JAX package's order (``fvm_tpu/ops/dia.py:330-340``)."""
+    contrib = (fb_vals * x[fb_cols] if x.ndim == 1
+               else fb_vals[:, None] * x[fb_cols])
+    if mode == "mv":
+        return y.index_add(0, fb_rows, contrib)
+    if mode == "residual":
+        return y.index_add(0, fb_rows, -contrib)
+    dfb = diag[fb_rows]
+    corr = omega * contrib / (dfb if x.ndim == 1 else dfb[:, None])
+    return y.index_add(0, fb_rows, -corr)
 
 
 def dia_apply_coef(dia: DIAInfo, diag, coef, fb_vals, x, b=None, omega=None,

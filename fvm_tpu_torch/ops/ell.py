@@ -2,10 +2,15 @@
 
 The reference's ``CRMatrix<Diag,OffDiag,X>`` (CRMatrix.h:87) as fixed-width
 ELL slots aligned with the mesh's cell->face table, SLOT-LEADING:
-``off[k, c]`` couples cell ``c`` to ``cols[k, c]``.  Products run through
-the DIA form (``ops/dia``): ``prepare`` builds the per-offset coefficients
-and the kernel operands once per assembled matrix, and ``mv``,
-``residual`` and ``jacobi_step`` are the fused DIA stencil.
+``off[k, c]`` couples cell ``c`` to ``cols[k, c]``.  A matrix with DIA
+structure (``dia``, from ``analyze_offsets``) runs its products through the
+DIA form (``ops/dia``): ``prepare`` builds the per-offset coefficients and
+the kernel operands once per assembled matrix, and ``mv``, ``residual``
+and ``jacobi_step`` are the fused DIA stencil.  A matrix without it (the
+deep levels of the greedy AMG, unstructured meshes) takes the gather-ELL
+products: a gather of x through ``cols`` and a sum over the K slots, plain
+PyTorch on every device, as the JAX package computes them in XLA outside
+any Pallas kernel (``fvm_tpu/ops/ell.py:171-235``).
 
 Solution vectors are ``(n,)`` or ``(n, m)``: m right-hand components share
 one scalar coefficient matrix (u/v momentum).
@@ -44,14 +49,10 @@ class ELLMatrix:
         return self.diag.shape[0]
 
     def prepare(self):
-        """Precompute the DIA coefficients once per assembled matrix."""
-        if self.dia_coef is not None:
+        """Precompute the DIA coefficients once per assembled matrix (a
+        no-op without DIA structure)."""
+        if self.dia_coef is not None or self.dia is None:
             return self
-        if self.dia is None:
-            raise NotImplementedError(
-                "ELLMatrix without DIA structure: the gather-ELL SpMV of "
-                "unstructured meshes is not ported yet"
-            )
         coef, fb = build_coef(self.dia, self.off, self.mask)
         diag = self.diag
         if not diag_ready(diag):
@@ -109,14 +110,28 @@ class ELLMatrix:
     def norm(self, x):
         return torch.sqrt(torch.sum(x * x))
 
+    def _gather_ax(self, x, mode):
+        """A x by gather-ELL: diag x + sum_k off[k] x[cols[k]]."""
+        key = (mode, self.n)
+        gather_ell_ops[key] = gather_ell_ops.get(key, 0) + 1
+        off = torch.where(self.mask, self.off, 0.0)
+        if x.ndim == 1:
+            return self.diag * x + (off * x[self.cols]).sum(dim=0)
+        return (self.diag[:, None] * x
+                + (off[:, :, None] * x[self.cols]).sum(dim=0))
+
     def mv(self, x):
         """Sparse matrix-vector product; x is (n,) or (n, m)."""
         A = self.prepare()
+        if A.dia is None:
+            return A._gather_ax(x, "mv")
         return dia_apply_coef(A.dia, A.diag, A.dia_coef, A.dia_fb_vals, x)
 
     def residual(self, x, b):
-        """b - A x in one fused pass."""
+        """b - A x (one fused pass on the DIA route)."""
         A = self.prepare()
+        if A.dia is None:
+            return b - A._gather_ax(x, "residual")
         return dia_apply_coef(A.dia, A.diag, A.dia_coef, A.dia_fb_vals, x,
                               b=b, mode="residual")
 
@@ -124,7 +139,15 @@ class ELLMatrix:
         return r / (self.diag if r.ndim == 1 else self.diag[:, None])
 
     def jacobi_step(self, x, b, omega=1.0):
-        """Damped Jacobi: x + omega * D^-1 (b - A x), one fused pass."""
+        """Damped Jacobi: x + omega * D^-1 (b - A x) (one fused pass on the
+        DIA route)."""
         A = self.prepare()
+        if A.dia is None:
+            return x + omega * A.diag_solve(b - A._gather_ax(x, "jacobi"))
         return dia_apply_coef(A.dia, A.diag, A.dia_coef, A.dia_fb_vals, x,
                               b=b, omega=omega, mode="jacobi")
+
+
+# gather-ELL products by (mode, rows) since the last reset: each is several
+# PyTorch launches (gather, products, slot sum, elementwise), counted once
+gather_ell_ops: dict = {}

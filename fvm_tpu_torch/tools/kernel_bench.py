@@ -1,10 +1,13 @@
-"""Inputs, bounds and device timing for the ``dia_stencil`` kernels.
+"""Inputs, level shapes, bounds and device timing for the ``dia_stencil``
+kernels.
 
 Shared by ``chip_smoke.py``, the card tests and ``scripts/dia_ab.py``.
 The timing functions need a CUDA card; the rest runs anywhere.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -40,20 +43,43 @@ def random_vectors(n, m, dtype, device, seed):
     return x.to(device, dtype), b.to(device, dtype)
 
 
-def cavity_level_shapes(edge, coarse_size=256):
-    """(rows, offsets) of every smoothed level of the AMG hierarchy that the
-    edge^2 cavity's solves build: the condensed fine level (edge^2 cells
-    and 4 edge + 1 boundary rows, offsets +-1 and +-edge) and the
-    structured coarse levels down to ``coarse_size`` rows (the coarsest,
-    solved densely, is not smoothed)."""
-    shapes = [(edge * edge + 4 * edge + 1, (edge, 1, -1, -edge))]
-    nx, ny, n = edge, edge, shapes[0][0]
-    while True:
-        lev = _StructuredLevel(nx, ny, n, "cpu")
-        nx, ny, n = lev.nx_c, lev.ny_c, lev.nC
-        if n <= coarse_size or max(nx, ny) <= 1:
-            return shapes
-        shapes.append((n, lev.coarse_offsets))
+@dataclass(frozen=True)
+class LevelShape:
+    """One smoothed level of an AMG hierarchy, as its products see it."""
+
+    rows: int
+    offsets: tuple | None  # DIA offsets; None: the gather-ELL products
+    fallback: int  # entries outside the DIA offsets (a scatter-add)
+    dia: object = None  # the level's DIAInfo (fallback tables), if any
+    graph: tuple | None = None  # (cols, mask) of a greedy coarse level
+
+
+def _shape(rows, dia, graph=None):
+    if dia is None:
+        return LevelShape(rows, None, 0, None, graph)
+    return LevelShape(rows, tuple(dia.offsets), int(dia.fb_rows.shape[0]),
+                      dia, graph)
+
+
+def level_shapes(amg, mesh):
+    """Every smoothed level of the hierarchy ``amg`` holds for the
+    matrices of ``mesh`` (structured or greedy): the condensed fine level
+    first, then each coarse level but the coarsest (solved densely).
+    ``setup_structure`` returns the solver's own cached hierarchy once the
+    model's ``init`` has built it."""
+    levels = amg.setup_structure(*mesh.host_cf(), mesh.device)
+    if not levels:
+        return []
+    fine = mesh.dia
+    if fine is not None and fine.cond_plan is not None:
+        fine = fine.cond_plan.dia2
+    out = [_shape(mesh.n_cells, fine)]
+    for lev in levels[:-1]:
+        if isinstance(lev, _StructuredLevel):
+            out.append(LevelShape(lev.nC, tuple(lev.coarse_offsets), 0))
+        else:
+            out.append(_shape(lev.nC, lev.dia_c, (lev.cols_c, lev.mask_c)))
+    return out
 
 
 def bound(n, m, D, mode, item):
@@ -64,6 +90,19 @@ def bound(n, m, D, mode, item):
     vec = n * m
     nbytes = item * (n * (D + 1) + vec * (2 if mode == "mv" else 3))
     nops = vec * (2 * D + 1 + MODE_OPS[mode])
+    return _limit(nbytes, nops)
+
+
+def gather_ell_bound(n, K, mode, item):
+    """``bound`` for one gather-ELL product on (n,): the K slots' values,
+    int64 columns and bool mask read once, diag, x and (but in mv) b read
+    once, y written once; per row K + 1 products, K sums and the mode's
+    extra operations."""
+    nbytes = K * n * (item + 8 + 1) + item * n * (3 if mode == "mv" else 4)
+    return _limit(nbytes, n * (2 * K + 1 + MODE_OPS[mode]))
+
+
+def _limit(nbytes, nops):
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * nops / FP32_OPS_PER_S
     if bytes_ms >= ops_ms:
