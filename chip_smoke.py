@@ -9,43 +9,72 @@ script exits non-zero before the last line):
   1. device   - requires CUDA; prints the card, the device count and
                 ``nvidia-smi --query-gpu=name,power.limit``;
   2. build    - builds the ``dia_stencil`` CUDA kernel's two variants
-                (wide, narrow) from the repository's sources, four nvcc
-                runs in parallel (ptxas register/spill summary), and the
-                host aggregation helper of the greedy AMG (``c++``);
+                (wide, narrow) in f32 and f64 and its bfloat16 variant
+                (narrow) from the repository's sources, five nvcc runs in
+                parallel (ptxas register/spill summary), and the host
+                aggregation helper of the greedy AMG (``c++``);
   3. kernel   - each variant against the plain PyTorch version on the
-                card, max abs error 0 required: 3 modes x {f32, f64} x
-                {(n,), (n, 2)} at every smoothed level of the AMG hierarchy
-                the main path builds (the condensed fine level first) and
-                at a multi-block case; x and b views at unaligned bases
-                with n not a multiple of 4, m up to 3;
+                card, max abs error 0 required: 3 modes x {f32, f64, bf16}
+                x {(n,), (n, 2)} at every smoothed level of the AMG
+                hierarchy the main path builds (the condensed fine level
+                first) and at a multi-block case; x and b views at
+                unaligned bases with n not a multiple of 4, m up to 3;
   4. slice    - the coupled flow+thermal step at 64^2 in float64 on the card
                 and on the CPU (plain versions): residual histories agree;
+                and ``coupled_steps`` (one CUDA graph replay of 5 steps)
+                against the eager loop on the card, bit for bit; the
+                float64 kernel against its plain version at the slice's
+                fine level;
   5. main     - the main path at full size: the 1024^2 float32 coupled
                 cavity of ``bench.py:main()``, warm-up + 10 timed outer
                 steps, with the kernel's launch counts per mode, variant and
-                level, and the device profile of two steps;
+                level, and the device profile of two steps; then the same
+                10 steps from the same state as one CUDA graph replay
+                (``coupled_steps``, bench's fused loop): residuals equal to
+                the eager loop's, ms per step, launches per step from the
+                capture, and the profile of a replay;
   6. timing   - the kernel, its plain version and the library call (mv:
                 ``torch.sparse.mm``, residual: ``torch.addmv``, both on a
                 CSR copy) at the fine level, beside the bound; then each AMG
-                level's Jacobi and residual device time per launch;
+                level's Jacobi and residual device time per launch; and the
+                float64 kernel at the same fine-level shape (its launches
+                from the 64^2 float64 slice);
   7. slice3d  - the coupled 3D cavity (``coupled_cavity_3d``) at 16^3 in
-                float64 on the card and on the CPU: histories agree;
+                float64 on the card and on the CPU: histories agree; the
+                graph replay equals the eager loop bit for bit under
+                deterministic algorithms;
   8. setup3d  - the 128^3 float32 coupled 3D cavity built, host seconds per
                 stage (mesh, metrics, device mesh with its cf tables and
                 DIA analysis, models with their LS coefficients and greedy
                 AMG hierarchies: aggregation, level tables; first step),
                 and the live hierarchy: rows, DIA offsets and fallback, or
                 gather-ELL;
-  9. kernel3d - both variants against the plain version, max abs error 0,
-                at every DIA level of that hierarchy: 3 modes x {f32, f64}
-                x {(n,), (n, 3)}, and on levels with fallback entries the
-                fused op with its fallback applied;
+  9. kernel3d - every variant against the plain version, max abs error 0,
+                at every DIA level of that hierarchy: 3 modes x {f32, f64,
+                bf16} x {(n,), (n, 3)}, and on levels with fallback entries
+                the fused op with its fallback applied;
  10. main3d   - the 3D main path: warm-up + 10 timed outer steps of the
                 128^3 cavity, launches per step by mode, variant and level,
-                gather-ELL products by level, and the device profile;
+                gather-ELL products by level, and the device profile; then
+                the graph replay of 10 steps as in phase 5 (residuals within
+                ``GRAPH3D_RTOL`` of the eager loop's: the greedy levels add
+                with atomics);
  11. timing3d - phase 6 at the 3D fine level (mv on (n, 3)), then each
                 level's Jacobi and residual: ``dia_stencil`` against its
                 bound, or the gather-ELL products' device time and launches;
+                and on the level with fallback entries the kernel beside
+                its plain version and ``torch.addmv``;
+ 12. options  - the cavity path's options on the 64^2 float64 slice, cuda
+                against cpu: AMG W and F cycles, Jacobi-preconditioned CG
+                for the pressure, GMRES for the momentum, flow ``sou`` with
+                thermal ``vanLeer``, ``residualNorm="L1"``, the flow and
+                thermal ``outerChunk`` advance (graph replays on the card)
+                and both AMG solvers in bfloat16; then the 1024^2 float32
+                cavity with both AMG solvers at ``precision="bf16"``
+                (bench's ``FVM_BENCH_AMG_PREC=bf16``): 10 graph-replayed
+                steps, bf16 ``dia_stencil`` launches per step, and the
+                bf16 kernel against its plain version and its bound at the
+                fine level;
 then the ``kernels`` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
@@ -54,6 +83,7 @@ It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -68,6 +98,17 @@ TIMED_STEPS = 10
 SLICE_N = 64
 SLICE_STEPS = 5
 SLICE_RTOL = 1e-8
+# the 3D graph replay against the eager loop without deterministic
+# algorithms: the greedy levels' index_add atomics reorder sums, and two
+# eager runs differed by up to 3.5e-6 relative (PERF.md, 128^3 float32)
+GRAPH3D_RTOL = 3.5e-6
+# bfloat16 unit round-off; the options phase holds its bf16 run cuda
+# against cpu to BF16_RTOL: each outer's pressure and thermal corrections
+# carry the bf16 cycle's error (a few u of the correction, rounded in
+# another order on each device), which the next residual reflects
+U_BF16 = 2.0 ** -8
+BF16_RTOL = 8 * U_BF16
+OPTION_STEPS = 3
 # the 3D counterpart: a 128^3 hex cavity (2,097,152 cells) in float32
 MAIN3D_N = 128
 SLICE3D_N = 16
@@ -79,9 +120,10 @@ TIMING_COPIES = 4
 # the library call timed beside each mode, and its agreement with the plain
 # version (float32, another summation order)
 LIBRARY_CALL = {"mv": "torch.sparse.mm", "residual": "torch.addmv"}
-LIBRARY_RTOL = 1e-5
+LIBRARY_RTOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 8 * U_BF16}
 TPU_KERNEL = "fvm_tpu/ops/pallas_kernels.py:125"
 KERNEL_SOURCE = "fvm_tpu_torch/csrc/dia_stencil.cu"
+KERNEL_SOURCE_BF16 = "fvm_tpu_torch/csrc/dia_stencil_bf16.cu"
 HOST_SOURCE = "fvm_tpu_torch/csrc/hostlib.cpp"
 
 
@@ -136,9 +178,10 @@ def stage_clock(secs, targets):
 
 
 def kernel_vs_plain(label, n, offsets, device, errors, nrhs=(1, 2),
-                    views=False, dia=None):
-    """Both variants against the plain version at one shape, bit for bit;
-    max abs errors go into ``errors`` by variant and mode.  With ``views``
+                    views=False, dia=None,
+                    dtypes=("float32", "float64", "bfloat16")):
+    """Every variant against the plain version at one shape, bit for bit;
+    max abs errors go into ``errors`` by (dtype, variant, mode).  With ``views``
     x and b are views at unaligned bases.  With a ``dia`` that has fallback
     entries, the fused op with its fallback applied (random values at the
     level's own fallback rows and columns) is held against the plain
@@ -150,7 +193,7 @@ def kernel_vs_plain(label, n, offsets, device, errors, nrhs=(1, 2),
 
     fb = dia is not None and dia.fb_rows.shape[0] > 0
     checks, worst = 0, 0.0
-    for dtype_name in ("float32", "float64"):
+    for dtype_name in dtypes:
         dtype = getattr(torch, dtype_name)
         coef, diag = random_operator(n, offsets, dtype, device, seed=1)
         if fb:
@@ -171,7 +214,7 @@ def kernel_vs_plain(label, n, offsets, device, errors, nrhs=(1, 2),
                 bb = None if mode == "mv" else b
                 y_ref = dk.dia_stencil_plain(offsets, mode, coef, diag, x,
                                              b=bb, omega=omega)
-                for variant in dk.VARIANTS:
+                for variant in dk.variants(dtype):
                     y = dk._launch(offsets, mode, coef, diag, x, bb, omega,
                                    variant=variant)
                     pairs = [(y, y_ref)]
@@ -191,13 +234,13 @@ def kernel_vs_plain(label, n, offsets, device, errors, nrhs=(1, 2),
                                 f"dia_stencil {variant} disagrees: {label} "
                                 f"{dtype_name} m={m} {mode}: max abs err "
                                 f"{err:.3e}")
-                        key = (variant, mode)
+                        key = (dtype_name, variant, mode)
                         errors[key] = max(errors.get(key, 0.0), err)
                         worst = max(worst, err)
                         checks += 1
     log("kernel", f"{label}: n={n} offsets={tuple(offsets)}"
         + (f" + {int(dia.fb_rows.shape[0])} fallback entries" if fb else "")
-        + f": {checks} checks (variants x dtypes x m x modes"
+        + f": {checks} checks (dtypes x their variants x m x modes"
         + (" x {stencil, with fallback}" if fb else "")
         + f"), max abs err {worst:g} (need 0) ok")
 
@@ -211,19 +254,53 @@ def coupled_history(make, n, steps, device, dtype):
             for _ in range(steps)]
 
 
-def slice_phase(phase, make, n, label, device):
+def max_rel(h, ref):
+    return max(abs(a - c) / max(abs(c), 1e-300)
+               for rg, rc in zip(h, ref) for a, c in zip(rg, rc))
+
+
+def slice_phase(phase, make, n, label, device, exact=contextlib.nullcontext):
     """The coupled step at a small size in float64 on the card and on the
-    CPU: the residual histories must agree to ``SLICE_RTOL``."""
+    CPU: the residual histories must agree to ``SLICE_RTOL``.  Then the
+    same steps as one CUDA graph replay (``coupled_steps``) on the card:
+    equal to the eager loop on the card bit for bit (both run under
+    ``exact()``), and to the CPU to ``SLICE_RTOL``.  Returns the float64
+    ``dia_stencil`` launches of the card's runs by mode (counters reset
+    just before them) and the fine level of the slice's pressure
+    hierarchy."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_steps
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
     t0 = time.time()
-    h_gpu = coupled_history(make, n, SLICE_STEPS, device, "float64")
+    dk.reset_launches()
+    with exact():
+        h_gpu = coupled_history(make, n, SLICE_STEPS, device, "float64")
+        flow, thermal = make(n, device=device, dtype="float64")
+        h_graph = coupled_steps(flow, thermal, SLICE_STEPS).tolist()
+        torch.cuda.synchronize()
+    launches = dk.type_launches(torch.float64)
+    fine = kb.level_shapes(flow.options["pressureLinearSolver"],
+                           flow.mesh)[0]
     h_cpu = coupled_history(make, n, SLICE_STEPS, "cpu", "float64")
-    worst = max(abs(a - c) / max(abs(c), 1e-300)
-                for rg, rc in zip(h_gpu, h_cpu) for a, c in zip(rg, rc))
+    worst = max_rel(h_gpu, h_cpu)
     log(phase, f"{label} float64, {SLICE_STEPS} coupled steps: cuda "
         f"{h_gpu[-1]} vs cpu {h_cpu[-1]}; max rel diff {worst:.3e} "
         f"(tol {SLICE_RTOL:g}) in {time.time() - t0:.1f} s")
     if not worst <= SLICE_RTOL:
         raise AssertionError(f"{phase}: cuda and cpu slices disagree")
+    runner = flow._runners[("coupled", thermal, SLICE_STEPS)]
+    same = h_graph == h_gpu
+    log(phase, f"{label} coupled_steps({SLICE_STEPS}) as one CUDA graph "
+        f"replay ({sum(runner.captured[0].values())} dia_stencil launches "
+        f"captured): {'bit-identical to' if same else 'DIFFERS from'} the "
+        f"eager loop on the card; max rel diff to the cpu "
+        f"{max_rel(h_graph, h_cpu):.3e}")
+    if not same or not max_rel(h_graph, h_cpu) <= SLICE_RTOL:
+        raise AssertionError(f"{phase}: the graph replay disagrees: "
+                             f"{h_graph} vs eager {h_gpu}")
+    return launches, fine
 
 
 def time_events(fns, reps):
@@ -305,19 +382,24 @@ def library_call(mode, csr, x, b):
     return lambda: torch.addmv(b, csr, x, alpha=-1)
 
 
-def profile_steps(flow, thermal, step_ms, steps=2):
+def profile_steps(flow, thermal, step_ms, steps=2, run=None, tag="profile"):
     """Device time of ``steps`` coupled steps by kernel (torch.profiler):
     the device-busy share of the unprofiled step time, the kernel launches
     per step, the ``dia_stencil`` kernels' device ms per step, and the
-    kernels that take the most device time."""
+    kernels that take the most device time.  ``run`` replaces the per-step
+    loop (a graph replay of ``steps`` steps).  Returns (busy ms per step,
+    kernel launches per step), or None when nothing was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fvm_tpu_torch.cases import coupled_step
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(steps):
-            coupled_step(flow, thermal)
+        if run is not None:
+            run()
+        else:
+            for _ in range(steps):
+                coupled_step(flow, thermal)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -328,24 +410,25 @@ def profile_steps(flow, thermal, step_ms, steps=2):
         if us > 0:
             rows.append((us / 1e3 / steps, e.count / steps, e.key))
     if not rows:
-        log("profile", "torch.profiler recorded no device time: not measured")
-        return
+        log(tag, "torch.profiler recorded no device time: not measured")
+        return None
     busy = sum(r[0] for r in rows)
-    log("profile", f"device busy {busy:.3f} ms of a {step_ms:.3f} ms step "
+    kernels = sum(r[1] for r in rows)
+    log(tag, f"device busy {busy:.3f} ms of a {step_ms:.3f} ms step "
         f"({100 * busy / step_ms:.1f}% busy, "
         f"{100 - 100 * busy / step_ms:.1f}% idle), "
-        f"{sum(r[1] for r in rows):g} kernel launches per step")
-    for variant in ("wide", "narrow"):
+        f"{kernels:g} kernel launches per step")
+    for variant in ("wide", "narrow", "bf16"):
         mine = [r for r in rows if f"dia_{variant}_kernel" in r[2]]
-        log("profile", f"dia_stencil {variant}: "
+        log(tag, f"dia_stencil {variant}: "
             f"{sum(r[0] for r in mine):.4f} ms/step over "
             f"{sum(r[1] for r in mine):g} launches/step")
     dia = [r for r in rows if "dia_" in r[2] and "_kernel" in r[2]]
-    log("profile", f"dia_stencil device time per step: "
+    log(tag, f"dia_stencil device time per step: "
         f"{sum(r[0] for r in dia):.4f} ms over {sum(r[1] for r in dia):g} "
         f"launches")
     for ms, n, key in sorted(rows, reverse=True)[:10]:
-        log("profile", f"  {ms:8.3f} ms/step {n:7.1f} calls/step  {key[:90]}")
+        log(tag, f"  {ms:8.3f} ms/step {n:7.1f} calls/step  {key[:90]}")
     # the PyTorch ops that issued those kernels (device time of each op's
     # kernels, nested ops counted in their callers too)
     ops = sorted(((e.device_time_total / 1e3 / steps, e.count / steps, e.key)
@@ -354,30 +437,32 @@ def profile_steps(flow, thermal, step_ms, steps=2):
                   and e.key.startswith("aten::") and e.device_time_total > 0),
                  reverse=True)
     for ms, n, key in ops[:8]:
-        log("profile", f"  {ms:8.3f} ms/step {n:7.1f} calls/step  op {key}")
+        log(tag, f"  {ms:8.3f} ms/step {n:7.1f} calls/step  op {key}")
+    return busy, kernels
 
 
 def timed_steps(flow, thermal, phase, cells, label):
-    """WARMUP_STEPS - 1 more warm-up steps (the first ran at set-up), then
-    TIMED_STEPS timed coupled steps with every launch counter reset just
-    before; returns (ms per step, residuals, dia_stencil launches by mode,
-    by (variant, mode, rows), gather-ELL products by (mode, rows))."""
+    """TIMED_STEPS timed coupled steps (after the caller's warm-up) with
+    every launch counter reset just before; returns (ms per step,
+    dia_stencil launches by mode, by (variant, mode, rows) and by variant,
+    gather-ELL products by (mode, rows), the (steps, 3) residuals)."""
     import torch
     from fvm_tpu_torch.cases import coupled_step
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.ops import ell
 
-    for _ in range(WARMUP_STEPS - 1):
-        coupled_step(flow, thermal)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dk.reset_launches()
     ell.gather_ell_ops.clear()
     t0 = time.perf_counter()
+    hist = []
     for _ in range(TIMED_STEPS):
         res = coupled_step(flow, thermal)
+        hist.append(res)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    hist = torch.stack([torch.stack(r) for r in hist]).tolist()
     launches = dict(dk.dia_stencil.launches)
     by_shape = dict(dk.dia_stencil.shapes)
     gathers = dict(ell.gather_ell_ops)
@@ -402,13 +487,83 @@ def timed_steps(flow, thermal, phase, cells, label):
     missing = [m for m in dk.MODES if launches[m] == 0]
     if missing:
         raise AssertionError(f"dia_stencil never launched: {missing}")
-    return 1e3 * dt / TIMED_STEPS, launches, by_shape, by_variant, gathers
+    return (1e3 * dt / TIMED_STEPS, launches, by_shape, by_variant, gathers,
+            hist)
 
 
-def time_modes(tag, n, offsets, cases, launches, errors, dtype_name):
+def snapshot(flow, thermal):
+    """Copies of both models' states, to start two loops from one state."""
+    return ({k: v.clone() for k, v in flow.state.items()},
+            {k: v.clone() for k, v in thermal.state.items()})
+
+
+def restore(flow, thermal, snap):
+    flow.state = {k: v.clone() for k, v in snap[0].items()}
+    thermal.state = {k: v.clone() for k, v in snap[1].items()}
+    thermal.state["massFlux"] = flow.state["massFlux"]
+
+
+def graph_steps(flow, thermal, phase, cells, label, eager_hist, rtol,
+                eager_ms):
+    """bench's fused loop on the card: ``TIMED_STEPS`` coupled steps as one
+    CUDA graph replay (``cases.coupled_steps``) from the state the eager
+    timed loop started from.  The first call captures (a one-step warm-up,
+    the capture, the replay); its residuals must equal ``eager_hist`` to
+    ``rtol`` (0: bit for bit).  Then two timed replays, launches per step
+    from the capture, and the profile of a third.  Returns (ms per step,
+    the capture's per-replay launch counts)."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_steps
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    k = TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = coupled_steps(flow, thermal, k)
+    hist = res.tolist()
+    capture_s = time.perf_counter() - t0
+    runner = flow._runners[("coupled", thermal, k)]
+    worst = max_rel(hist, eager_hist)
+    log(phase, f"{label}: coupled_steps({k}) captured and replayed in "
+        f"{capture_s:.2f} s; residuals vs the eager loop from the same "
+        f"state: max rel diff {worst:.3e} (tol {rtol:g}); max memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if not worst <= rtol:
+        raise AssertionError(f"{phase}: graph {hist} vs eager {eager_hist}")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = coupled_steps(flow, thermal, k)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / k)
+    resids = res[-1].tolist()
+    if not all(v == v and abs(v) != float("inf") for v in resids):
+        raise AssertionError(f"non-finite residuals {resids}")
+    ms = min(times)
+    cap = runner.captured
+    log(phase, f"{label} graph replay: {k} coupled steps per replay, "
+        + ", ".join(f"{t:.3f}" for t in times) + f" ms/step "
+        f"({cells / ms * 1e3:.6e} cells/s at the best; eager loop "
+        f"{eager_ms:.3f} ms/step)")
+    log(phase, "captured per step: dia_stencil " + ", ".join(
+        f"{m} {cap[0].get(m, 0) / k:g}" for m in dk.MODES) + "; by type "
+        + ", ".join(f"{dk.type_tag(t)}/{m} {v / k:g}" for t in (
+            torch.float32, torch.float64, torch.bfloat16)
+            for m, v in dk.type_launches(t, cap[1]).items() if v)
+        + f"; gather-ELL products {sum(cap[2].values()) / k:g}")
+    log(phase, f"final residuals (mom, cont, thermal): {resids}")
+    profile_steps(flow, thermal, ms, steps=k, tag="profile-graph",
+                  run=lambda: coupled_steps(flow, thermal, k))
+    return ms, cap
+
+
+def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
+               rows=True):
     """The kernel, its plain version and the library call at one level,
     per (mode, m) of ``cases``, beside the bound; returns the ``kernels``
-    JSON entries (``tag`` is appended to their names)."""
+    JSON entries (``tag`` is appended to their names) of the modes with a
+    count in ``launches`` (none without ``rows``: timings only)."""
     import torch
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.tools import kernel_bench as kb
@@ -446,37 +601,53 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name):
         # same matrix (the port never calls it); damped Jacobi has none:
         # x + omega (b - A x) / diag needs a product and two more passes
         library_ms = library_eager_ms = None
+        library_note = "none for jacobi (no single call)"
         if mode in LIBRARY_CALL:
-            libs = [library_call(mode, csr_copy(offsets, c[0], c[1]),
-                                 c[2], c[3].get("b")) for c in sets]
-            got, want = libs[0](), plain[0]()
-            err = float((got - want).abs().max()) / float(want.abs().max())
-            if not err <= LIBRARY_RTOL:
-                raise AssertionError(f"{LIBRARY_CALL[mode]} disagrees with "
-                                     f"the plain {mode}: rel err {err:.3e}")
-            library_ms = kb.time_device(libs, TIMING_REPS)
-            library_eager_ms = time_events(libs, TIMING_REPS)
-            del libs, got, want
+            try:
+                libs = [library_call(mode, csr_copy(offsets, c[0], c[1]),
+                                     c[2], c[3].get("b")) for c in sets]
+                got = libs[0]()
+            except RuntimeError as e:  # a type the library does not take
+                libs, library_note = None, f"{LIBRARY_CALL[mode]} failed: " \
+                    f"{str(e).splitlines()[0][:80]}"
+            if libs is not None:
+                want = plain[0]()
+                err = float((got - want).abs().max()) / float(
+                    want.abs().max())
+                if not err <= LIBRARY_RTOL[dtype_name]:
+                    raise AssertionError(
+                        f"{LIBRARY_CALL[mode]} disagrees with the plain "
+                        f"{mode}: rel err {err:.3e}")
+                library_ms = kb.time_device(libs, TIMING_REPS)
+                library_eager_ms = time_events(libs, TIMING_REPS)
+                del got, want
+            del libs
         del sets, kern, plain
         bound_ms, bound_by, nbytes, nops = kb.bound(n, m, len(offsets), mode,
                                                    item)
-        variant = "wide" if n >= dk.WIDE_MIN_ROWS else "narrow"
+        variant = dk.dispatch(n, dtype)
         log("timing", f"dia_stencil {mode}{tag} ({variant}) n={n} m={m} "
             f"D={len(offsets)} {dtype_name}: device {ms:.5f} ms (graph "
             f"replay {graph_ms:.5f}, eager {eager_ms:.5f}), bound "
             f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s; "
             f"{nops} flop at 67 TFLOP/s), {100 * bound_ms / ms:.1f}% of "
             f"bound; plain device {plain_ms:.5f} ms; "
-            + ("library: none for jacobi (no single call)"
-               if library_ms is None else
+            + (f"library: {library_note}" if library_ms is None else
                f"{LIBRARY_CALL[mode]} CSR device {library_ms:.5f} ms "
                f"(eager {library_eager_ms:.5f})"))
+        if not rows:
+            continue
+        if not launches.get(mode):
+            log("timing", f"dia_stencil {mode}{tag}: not launched on this "
+                f"path, so no kernels row")
+            continue
         out.append({
             "name": f"dia_stencil.{mode}{tag}", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "source": KERNEL_SOURCE_BF16 if dtype_name == "bfloat16"
+            else KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "launches": launches[mode],
-            "max_abs_err": max(v for (_, md), v in errors.items()
-                               if md == mode),
+            "max_abs_err": max(v for (dt, _, md), v in errors.items()
+                               if md == mode and dt == dtype_name),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
@@ -518,6 +689,7 @@ def level_table(shapes, by_shape, gathers, dtype_name):
     from fvm_tpu_torch.tools import kernel_bench as kb
 
     dtype = getattr(torch, dtype_name)
+    tag = dk.type_tag(dtype)
     item = torch.empty((), dtype=dtype).element_size()
     device = torch.device("cuda", 0)
     log("levels", "lvl rows route | jacobi: per step, ms, bound, share | "
@@ -557,7 +729,7 @@ def level_table(shapes, by_shape, gathers, dtype_name):
                                             b=o[3], omega=omega)
                  for o in ops], LEVEL_REPS)
             bnd = kb.bound(n, 1, len(s.offsets), mode, item)[0]
-            per = by_shape.get((variant, mode, n), 0) / TIMED_STEPS
+            per = by_shape.get((tag, variant, mode, n), 0) / TIMED_STEPS
             excess += per * (t - bnd)
             total["ms"] += per * t
             total["bound"] += per * bnd
@@ -570,6 +742,158 @@ def level_table(shapes, by_shape, gathers, dtype_name):
         f"{total['bound']:.4f}; gather-ELL {total['gather']:.4f} ms/step "
         f"against a bound of {total['gather_bound']:.4f}, "
         f"{total['gather_launches']:g} kernel launches/step")
+
+
+OPTION_CHUNK = 3
+
+
+def _amg(**kw):
+    from fvm_tpu_torch.linear import AMG
+
+    return AMG(coarse_size=256, relative_tolerance=1e-3, max_iterations=6,
+               **kw)
+
+
+def _set(model, key, value):
+    model.options[key] = value
+
+
+def option_cases():
+    """(label, configure(flow, thermal), chunked, tolerance) of the options
+    phase, each on the bench cavity's models."""
+    from fvm_tpu_torch.linear import CG, GMRES, JacobiSolver
+
+    return [
+        ("AMG W cycle (pressure)", lambda f, t: _set(
+            f, "pressureLinearSolver", _amg(cycle="W")), False, SLICE_RTOL),
+        ("AMG F cycle (pressure)", lambda f, t: _set(
+            f, "pressureLinearSolver", _amg(cycle="F")), False, SLICE_RTOL),
+        ("CG + Jacobi (pressure)", lambda f, t: _set(
+            f, "pressureLinearSolver", CG(
+                preconditioner=JacobiSolver(sweeps=3),
+                relative_tolerance=1e-3, max_iterations=100)),
+         False, SLICE_RTOL),
+        ("GMRES(10) (momentum)", lambda f, t: _set(
+            f, "momentumLinearSolver", GMRES(
+                restart=10, relative_tolerance=1e-2, max_iterations=10)),
+         False, SLICE_RTOL),
+        ("flow sou + thermal vanLeer", lambda f, t: (
+            _set(f, "convectionScheme", "sou"),
+            _set(t, "convectionScheme", "vanLeer")), False, SLICE_RTOL),
+        ('residualNorm="L1"', lambda f, t: _set(f, "residualNorm", "L1"),
+         False, SLICE_RTOL),
+        (f"outerChunk {OPTION_CHUNK} (flow, then thermal)",
+         lambda f, t: None, True, SLICE_RTOL),
+        ('AMG precision="bf16" (pressure and thermal)', lambda f, t: (
+            _set(f, "pressureLinearSolver", _amg(precision="bf16")),
+            _set(t, "linearSolver", _amg(precision="bf16"))),
+         False, BF16_RTOL),
+    ]
+
+
+def run_option(configure, chunked, device):
+    """The 64^2 float64 bench cavity with one option: OPTION_STEPS coupled
+    steps, or (``chunked``) the flow then the thermal model advanced
+    2 OPTION_CHUNK outers in chunks of OPTION_CHUNK (one CUDA graph replay
+    per chunk on the card).  Returns (history, graph runners or None)."""
+    from fvm_tpu_torch.cases import coupled_cavity, coupled_step
+
+    flow, thermal = coupled_cavity(SLICE_N, device=device, dtype="float64")
+    configure(flow, thermal)
+    flow.init()
+    thermal.init()
+    if not chunked:
+        return [[float(v) for v in coupled_step(flow, thermal)]
+                for _ in range(OPTION_STEPS)], None
+    for m in (flow, thermal):
+        m.options["residualSync"] = True
+        m.options["outerChunk"] = OPTION_CHUNK
+    hist = [list(h[1:]) for h in flow.advance(2 * OPTION_CHUNK)]
+    thermal.state["massFlux"] = flow.state["massFlux"]
+    hist += [[h[1]] for h in thermal.advance(2 * OPTION_CHUNK)]
+    return hist, [m._runners[("chunk", OPTION_CHUNK)] for m in (flow, thermal)]
+
+
+def options_phase(device):
+    """Each option of the cavity path on the card against the CPU."""
+    for label, configure, chunked, tol in option_cases():
+        t0 = time.time()
+        h_gpu, runners = run_option(configure, chunked, device)
+        h_cpu, _ = run_option(configure, chunked, "cpu")
+        if len(h_gpu) != len(h_cpu):
+            raise AssertionError(f"options: {label}: {len(h_gpu)} outers on "
+                                 f"the card, {len(h_cpu)} on the cpu")
+        worst = max_rel(h_gpu, h_cpu)
+        extra = ""
+        if runners is not None:
+            if not all(r.graph is not None and r.replays == 2
+                       for r in runners):
+                raise AssertionError(f"options: {label}: not replayed")
+            extra = (f"; {sum(r.replays for r in runners)} graph replays, "
+                     f"dia_stencil launches captured per chunk "
+                     + "/".join(str(sum(r.captured[0].values()))
+                                for r in runners))
+        log("options", f"{label}: {SLICE_N}^2 float64, {len(h_gpu)} outers: "
+            f"cuda {h_gpu[-1]} vs cpu {h_cpu[-1]}; max rel diff "
+            f"{worst:.3e} (tol {tol:g}){extra} in {time.time() - t0:.1f} s")
+        if not worst <= tol:
+            raise AssertionError(f"options: {label}: cuda and cpu disagree")
+
+
+def bf16_main_phase(device, n_fine, offsets, errors):
+    """bench's FVM_BENCH_AMG_PREC=bf16 configuration at full width: the
+    1024^2 float32 cavity with both AMG cycles in bfloat16, warm-up, then
+    TIMED_STEPS coupled steps as one CUDA graph replay (counters reset
+    just before the first call, read just after), two timed replays; then
+    the bf16 kernel at the fine level beside its bound.  Returns the
+    ``kernels`` rows of the bf16 modes this path launches."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_cavity, coupled_step, coupled_steps
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    k = TIMED_STEPS
+    t0 = time.time()
+    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE,
+                                   amg_precision="bf16")
+    for _ in range(WARMUP_STEPS):
+        coupled_step(flow, thermal)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    hist = coupled_steps(flow, thermal, k).tolist()
+    capture_s = time.perf_counter() - t0
+    launches = dk.type_launches(torch.bfloat16)
+    cap = flow._runners[("coupled", thermal, k)].captured
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = coupled_steps(flow, thermal, k)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / k)
+    resids = res[-1].tolist()
+    log("bf16", f"{MAIN_N}^2 {MAIN_DTYPE} cavity, both AMG cycles in "
+        f"bfloat16: set up and {WARMUP_STEPS} eager steps in {setup_s:.1f} "
+        f"s; coupled_steps({k}) captured and replayed in {capture_s:.2f} s; "
+        f"replays " + ", ".join(f"{t:.3f}" for t in times) + " ms/step ("
+        f"{MAIN_N * MAIN_N / min(times) * 1e3:.6e} cells/s at the best)")
+    log("bf16", "bf16 dia_stencil launches per step (capture): " + ", ".join(
+        f"{m} {v / k:g}" for m, v in
+        dk.type_launches(torch.bfloat16, cap[1]).items())
+        + "; in the counted run (warm-up step + one replay): " + ", ".join(
+            f"{m} {v}" for m, v in launches.items()))
+    log("bf16", f"residuals of the first replay, first and last step: "
+        f"{hist[0]}, {hist[-1]}; after the timed replays: {resids}")
+    if not all(v == v and abs(v) != float("inf")
+               for row in hist + [resids] for v in row):
+        raise AssertionError(f"bf16: non-finite residuals {resids}")
+    if not launches["jacobi"] or not launches["residual"]:
+        raise AssertionError("bf16: the bfloat16 kernel never launched")
+    del flow, thermal
+    gc.collect()
+    return time_modes(" (bf16)", n_fine, offsets,
+                      (("mv", 1), ("residual", 1), ("jacobi", 1)),
+                      launches, errors, "bfloat16")
 
 
 def describe(shapes):
@@ -616,7 +940,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
     dk.build(verbose=True)
-    log("build", f"dia_stencil wide and narrow built from {KERNEL_SOURCE} in "
+    log("build", f"dia_stencil wide and narrow (f32, f64) built from "
+        f"{KERNEL_SOURCE} and narrow (bf16) from {KERNEL_SOURCE_BF16} in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
     hostlib.build()
@@ -644,18 +969,28 @@ def main() -> int:
                     device, errors, nrhs=(1, 2, 3), views=True)
 
     # ---- 4. slice on the card vs slice on the CPU --------------------------
-    slice_phase("slice", coupled_cavity, SLICE_N, f"{SLICE_N}^2", device)
+    launches64, fine64 = slice_phase("slice", coupled_cavity, SLICE_N,
+                                     f"{SLICE_N}^2", device)
+    kernel_vs_plain(f"{SLICE_N}^2 slice fine level", fine64.rows,
+                    fine64.offsets, device, errors, dtypes=("float64",))
 
     # ---- 5. main path at full size ----------------------------------------
     log("main", f"{MAIN_N}^2 {MAIN_DTYPE} coupled cavity set up and first "
         f"step in {setup_s:.1f} s ({flow.mesh.n_cells} rows)")
-    step_ms, launches, by_shape, by_variant, _ = timed_steps(
+    for _ in range(WARMUP_STEPS - 1):
+        coupled_step(flow, thermal)
+    snap = snapshot(flow, thermal)
+    step_ms, launches, by_shape, by_variant, _, hist = timed_steps(
         flow, thermal, "main", MAIN_N * MAIN_N, f"{MAIN_N}^2 {MAIN_DTYPE}")
     missing = [v for v in dk.VARIANTS if by_variant[v] == 0]
     if missing:
         raise AssertionError(f"dia_stencil never launched: {missing}")
     profile_steps(flow, thermal, step_ms)
-    del flow, thermal
+    restore(flow, thermal, snap)
+    graph_steps(flow, thermal, "main", MAIN_N * MAIN_N,
+                f"{MAIN_N}^2 {MAIN_DTYPE}", hist, 0.0, step_ms)
+    del flow, thermal, snap
+    gc.collect()
 
     # ---- 6. kernel timing at the main path's shapes ------------------------
     # momentum BiCGStab mv on (n, 2); AMG residual and Jacobi on (n,)
@@ -663,10 +998,17 @@ def main() -> int:
                          (("mv", 2), ("residual", 1), ("jacobi", 1)),
                          launches, errors, MAIN_DTYPE)
     level_table(shapes, by_shape, {}, MAIN_DTYPE)
+    # the float64 rows: timed at the main path's fine level (a random
+    # operator of its shape, as phase 3 checks it), with the launches of
+    # the float64 slice's run (phase 4); at the slice's own 4,353 rows a
+    # launch is launch latency alone
+    kernels += time_modes(" (f64)", n_main, main_offsets,
+                          (("mv", 2), ("residual", 1), ("jacobi", 1)),
+                          launches64, errors, "float64")
 
     # ---- 7. the 3D slice on the card vs on the CPU -------------------------
     slice_phase("slice3d", coupled_cavity_3d, SLICE3D_N, f"{SLICE3D_N}^3",
-                device)
+                device, exact=deterministic)
 
     # ---- 8. the 3D main path set up ----------------------------------------
     secs, mesh_parts, init_parts = {}, {}, {}
@@ -732,12 +1074,15 @@ def main() -> int:
                             errors3, nrhs=(1, 3), dia=s.dia)
 
     # ---- 10. the 3D main path ---------------------------------------------
-    step3_ms, launches3, by_shape3, _, gathers3 = timed_steps(
+    for _ in range(WARMUP_STEPS - 1):
+        coupled_step(flow, thermal)
+    snap = snapshot(flow, thermal)
+    step3_ms, launches3, by_shape3, _, gathers3, hist3 = timed_steps(
         flow, thermal, "main3d", cells3, f"{MAIN3D_N}^3 {MAIN_DTYPE}")
     per_level = []
     for lvl, s in enumerate(shapes3):
-        kinds = [f"{k[0]}/{k[1]} {v / TIMED_STEPS:g}"
-                 for k, v in sorted(by_shape3.items()) if k[2] == s.rows]
+        kinds = [f"{k[1]}/{k[2]} {v / TIMED_STEPS:g}"
+                 for k, v in sorted(by_shape3.items()) if k[3] == s.rows]
         kinds += [f"gather-ELL {k[0]} {v / TIMED_STEPS:g}"
                   for k, v in sorted(gathers3.items()) if k[1] == s.rows]
         per_level.append(f"L{lvl} {s.rows}: " + ", ".join(kinds))
@@ -746,7 +1091,11 @@ def main() -> int:
     if any(s.offsets is None for s in shapes3) and not gathers3:
         raise AssertionError("the gather-ELL products never ran")
     profile_steps(flow, thermal, step3_ms)
-    del flow, thermal, dmesh
+    restore(flow, thermal, snap)
+    graph_steps(flow, thermal, "main3d", cells3, f"{MAIN3D_N}^3 {MAIN_DTYPE}",
+                hist3, GRAPH3D_RTOL, step3_ms)
+    del flow, thermal, dmesh, snap
+    gc.collect()
 
     # ---- 11. kernel timing at the 3D shapes -------------------------------
     # momentum BiCGStab mv on (n, 3); AMG residual and Jacobi on (n,)
@@ -754,6 +1103,17 @@ def main() -> int:
                           (("mv", 3), ("residual", 1), ("jacobi", 1)),
                           launches3, errors3, MAIN_DTYPE)
     level_table(shapes3, by_shape3, gathers3, MAIN_DTYPE)
+    # the levels with fallback entries: the kernel alone beside its plain
+    # version and the library call (the fallback's index_add follows)
+    for lvl, s in enumerate(shapes3):
+        if s.offsets is not None and s.fallback:
+            time_modes(f" (3d L{lvl}, stencil only)", s.rows, s.offsets,
+                       (("residual", 1), ("jacobi", 1)), {}, errors3,
+                       MAIN_DTYPE, rows=False)
+
+    # ---- 12. the cavity path's options -------------------------------------
+    options_phase(device)
+    kernels += bf16_main_phase(device, n_main, main_offsets, errors)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

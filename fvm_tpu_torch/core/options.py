@@ -122,6 +122,12 @@ class ModelOptions(FloatVarDict):
     """Model options (tolerances, transient switches, solvers...)."""
 
     _defaults = {
+        # outer iterations per dispatch: > 1 runs the outer loop in chunks
+        # of that many iterations with the convergence test on the device
+        # and one host read-back per chunk; on a CUDA mesh each chunk is
+        # one CUDA graph replay (models/chunk.py).  0/1: the classic
+        # per-iteration loop
+        "outerChunk": 0,
         # raise SolverError on a NaN/Inf outer residual (opt-in FPE trap)
         "trapNonfinite": False,
     }

@@ -23,7 +23,8 @@
 // still added), so each agrees bit for bit with dia_stencil_plain.
 //
 // The source is compiled once per variant and element type: -DDIA_F64
-// selects double, and the C entry point carries the type in its name.
+// selects double, -DDIA_BF16 bfloat16 (dia_stencil_bf16.cu), and the C
+// entry point carries the type in its name.
 
 #pragma once
 
@@ -33,7 +34,11 @@
 #define MAX_OFFSETS 16
 #define COEF_ALIGN 32  // elements: coef row stride granule
 
-#ifdef DIA_F64
+#if defined(DIA_BF16)
+#include <cuda_bf16.h>
+typedef __nv_bfloat16 real;
+#define DIA_ENTRY(name) name##_bf16
+#elif defined(DIA_F64)
 typedef double real;
 #define DIA_ENTRY(name) name##_f64
 #else

@@ -1,3 +1,3 @@
 from .base import LinearSolver, SolveStats, norm
-from .krylov import BiCGStab, JacobiSolver
+from .krylov import CG, GMRES, BiCGStab, JacobiSolver
 from .amg import AMG, DirectSolver

@@ -17,12 +17,19 @@ Galerkin product recomputed on the device each solve.  Two kinds of level:
   (then products go through ``dia_stencil``), else they use the gather-ELL
   products of ``ops/ell.py``.
 
-The coarsest level is factored once per solve with ``torch.linalg.inv``
+The coarsest level is factored once per solve with ``torch.linalg.inv_ex``
 (the role of ``linear/dense.dense_inverse``).  ``DirectSolver`` solves
-densely with ``torch.linalg.solve``.
+densely with ``torch.linalg.solve_ex``.  Both check their ``info`` with
+``base.check_info``: at once when eager, after the replay inside a CUDA
+graph.
 
-Not ported yet: W/F cycles, ``precision="bf16"`` and the distributed
-(stacked) levels.
+Cycles V, W and F (AMG.h:40-70).  ``precision="bf16"`` runs the cycle in
+bfloat16 (``fvm_tpu/linear/amg.py:1144-1175``): the hierarchy's matrices
+and the coarse inverse are cast once per solve, and the cycle casts only
+at its edges (``_cycle0``); on a CUDA tensor the DIA levels' products go
+through the bfloat16 ``dia_stencil`` kernel.
+
+Not ported yet: the distributed (stacked) levels.
 """
 
 from __future__ import annotations
@@ -36,9 +43,9 @@ import torch.nn.functional as F
 from .. import hostlib
 from ..exceptions import ConfigError
 from ..ops.dia import DIAInfo, DIAMatrix, index_tensor
-from ..ops.dia_kernel import empty_coef
+from ..ops.dia_kernel import cast_coef, empty_coef
 from ..ops.ell import ELLMatrix
-from .base import LinearSolver, SolveStats, condensed, norm
+from .base import LinearSolver, SolveStats, check_info, condensed, norm
 
 
 def aggregate_plain(cols: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -181,7 +188,8 @@ class _StructuredLevel:
     same sums.)
     """
 
-    def __init__(self, nx: int, ny: int, n: int, device, merge=None):
+    def __init__(self, nx: int, ny: int, n: int, device, merge=None,
+                 cols=None, mask=None):
         self.nx, self.ny = nx, ny
         self.n = n  # total fine rows incl. tail
         self.m = nx * ny
@@ -200,6 +208,7 @@ class _StructuredLevel:
             off_c.setdefault(d, []).append(name)
         self.coarse_offsets = tuple(off_c.keys())
         self._off_c_names = off_c
+        self._extra = {}
 
         if merge is not None and len(merge):
             live = merge >= 0
@@ -208,6 +217,26 @@ class _StructuredLevel:
         else:
             self.tail_rows = torch.zeros(0, dtype=torch.int64, device=device)
             self.tail_agg = torch.zeros(0, dtype=torch.int64, device=device)
+
+        # the fine level's own ELL-slot -> offset-role map, for a fine
+        # matrix without DIA metadata (a mesh whose offsets analyze_offsets
+        # declines): bucket[k, i] in {0..3} indexes (+1, -1, +nx, -nx);
+        # every other coupling (to tail rows) folds into the coarse
+        # diagonal of its grid-side cell (fvm_tpu/linear/amg.py:268-291)
+        self._bucket = None
+        if cols is not None:
+            delta = np.where(mask, cols - np.arange(n)[:, None], 0)
+            bucket = np.full(cols.shape, -1, dtype=np.int64)
+            grid_rows = (np.arange(n) < self.m)[:, None]
+            for i, d in enumerate((1, -1, nx, -nx)):
+                bucket[(delta == d) & mask & grid_rows
+                       & (cols < self.m)] = i
+            fr, fk = np.nonzero(mask & (bucket < 0)
+                                & (cols != np.arange(n)[:, None]))
+            self._bucket = index_tensor(bucket.T, device)
+            self._fb_rows = index_tensor(fr, device)
+            self._fb_slots = index_tensor(fk, device)
+            self._fb_cols = index_tensor(cols[fr, fk], device)
 
     def _agg_of_cell(self, i):
         x, y = i % self.nx, i // self.nx
@@ -264,14 +293,24 @@ class _StructuredLevel:
     def _coef_named(self, A):
         """Fine coefficient grids keyed by role xp/xm/yp/ym (zeros when the
         fine matrix lacks that offset), plus diagonal fold entries.  A is a
-        coarse DIAMatrix or a prepared fine ELLMatrix (``prepare`` raises
-        for a matrix without DIA structure)."""
+        coarse DIAMatrix, a prepared fine ELLMatrix with DIA structure, or
+        a fine ELLMatrix without it (then the level's own bucketing)."""
         if isinstance(A, DIAMatrix):
             offsets, coef, diag = A.offsets, A.coef, A.diag
             fb = None
-        else:
+        elif A.dia is not None:
             offsets, coef, diag = A.dia.offsets, A.dia_coef, A.diag
             fb = (A.dia.fb_rows, A.dia.fb_cols, A.dia_fb_vals)
+        else:
+            # no DIA metadata: the level's own slot bucketing
+            offv = torch.where(A.mask, A.off, 0.0)
+            coef = torch.stack([
+                torch.where(self._bucket == i, offv, 0.0).sum(dim=0)
+                for i in range(4)])
+            offsets = (1, -1, self.nx, -self.nx)
+            diag = A.diag
+            fb = (self._fb_rows, self._fb_cols,
+                  offv[self._fb_slots, self._fb_rows])
         lut = {int(d): i for i, d in enumerate(offsets)}
         zero = torch.zeros((self.ny, self.nx), dtype=diag.dtype,
                            device=diag.device)
@@ -298,6 +337,17 @@ class _StructuredLevel:
         ]
         return names, self._grid(diag), diag, fb, extras
 
+    def _extra_agg(self, d):
+        """The coarse aggregate of each tail row's owner across offset d,
+        made on the host once per offset (no host copy while a CUDA graph
+        is captured)."""
+        agg = self._extra.get(d)
+        if agg is None:
+            owner = np.clip(np.arange(self.m, self.n) + d, 0, self.m - 1)
+            agg = index_tensor(self._agg_of_cell(owner), self.device)
+            self._extra[d] = agg
+        return agg
+
     def galerkin(self, A):
         """Coarse DIAMatrix = R A P, elementwise on the DIA grids."""
         C, Dg, diag_full, fb, extras = self._coef_named(A)
@@ -323,10 +373,8 @@ class _StructuredLevel:
         for d, cvec in extras:
             diag_c = diag_c + self._pairsum(self._grid(cvec)).reshape(-1)
             if self.n > self.m:
-                tail_idx = np.arange(self.m, self.n)
-                owner = np.clip(tail_idx + d, 0, self.m - 1)
-                agg = index_tensor(self._agg_of_cell(owner), self.device)
-                diag_c = diag_c.index_add(0, agg, cvec[self.m:])
+                diag_c = diag_c.index_add(0, self._extra_agg(d),
+                                          cvec[self.m:])
         # tail entries: ghost diagonals fold into the owner aggregate
         if self.tail_rows.shape[0]:
             diag_c = diag_c.index_add(0, self.tail_agg,
@@ -442,6 +490,18 @@ class _Level:
         return xc[self.agg]
 
 
+def _to_bf16(A):
+    """A prepared level matrix with its values in bfloat16 (the
+    coefficients kept in the kernel's layout)."""
+    bf = torch.bfloat16
+    if isinstance(A, DIAMatrix):
+        return DIAMatrix(A.diag.to(bf), cast_coef(A.coef, bf), A.offsets)
+    return A.replace(
+        diag=A.diag.to(bf), off=A.off.to(bf),
+        dia_coef=None if A.dia_coef is None else cast_coef(A.dia_coef, bf),
+        dia_fb_vals=None if A.dia_fb_vals is None else A.dia_fb_vals.to(bf))
+
+
 def _dense_from_ell(A: ELLMatrix, n: int):
     D = torch.diag(A.diag)
     rows = torch.arange(n, device=A.diag.device).repeat(A.cols.shape[0])
@@ -452,10 +512,13 @@ def _dense_from_ell(A: ELLMatrix, n: int):
 class AMG(LinearSolver):
     """Aggregation AMG; usable standalone or as a Krylov preconditioner.
 
-    Options mirror the reference (AMG.h:40-70); the V cycle is ported.
+    Options mirror the reference (AMG.h:40-70): cycle type (V/W/F),
+    smoother sweeps, max coarse levels, coarsest-size threshold.
     ``structured=True`` takes index-pairing levels where the row graph is a
     tensor-product grid; ``False`` forces greedy graph aggregation
-    everywhere."""
+    everywhere.  ``precision="bf16"`` runs the cycle in bfloat16: as a
+    preconditioner the lost mantissa costs at worst a few more outer
+    iterations, and the cycle moves half the bytes."""
 
     def __init__(
         self,
@@ -466,13 +529,17 @@ class AMG(LinearSolver):
         smoother_omega: float = 0.7,
         smoother_sweeps: int = 2,
         cycle: str = "V",
+        precision: str | None = None,
         structured: bool = True,
         **kw,
     ):
         kw.setdefault("max_iterations", 30)
         super().__init__(**kw)
-        if cycle != "V":
-            raise ConfigError(f"AMG: cycle {cycle!r} is not ported (V only)")
+        if cycle not in ("V", "W", "F"):
+            raise ConfigError(f"AMG: unknown cycle {cycle!r} (V, W or F)")
+        if precision not in (None, "bf16"):
+            raise ConfigError(f"AMG: unknown precision {precision!r} "
+                              f"(None or 'bf16')")
         self.max_levels = max_levels
         self.coarse_size = coarse_size
         self.nu_pre = nu_pre
@@ -480,6 +547,7 @@ class AMG(LinearSolver):
         self.omega = smoother_omega
         self.smoother_sweeps = smoother_sweeps
         self.cycle_type = cycle
+        self.precision = precision
         self.structured = structured
         # hierarchies keyed by (device (K, n) shape, structure digest,
         # device); and the same hierarchies keyed by the identity of the
@@ -515,11 +583,14 @@ class AMG(LinearSolver):
         grid = detect_grid(cols_np, mask_np) if self.structured else None
         if grid is not None:
             nx, ny, merge = grid
+            c_np, m_np = cols_np, mask_np
             while n > self.coarse_size and len(levels) < self.max_levels \
                     and max(nx, ny) > 1:
-                lev = _StructuredLevel(nx, ny, n, device, merge=merge)
+                lev = _StructuredLevel(nx, ny, n, device, merge=merge,
+                                       cols=c_np, mask=m_np)
                 levels.append(lev)
                 nx, ny, merge, n = lev.nx_c, lev.ny_c, None, lev.nC
+                c_np = m_np = None
         else:
             cols, mask = cols_np, mask_np
             while n > self.coarse_size and len(levels) < self.max_levels:
@@ -552,17 +623,33 @@ class AMG(LinearSolver):
             x = A.jacobi_step(x, b, self.omega)
         return x
 
-    def _cycle(self, levels, mats, inv, lvl, b):
-        """One V-cycle starting with x=0 at level lvl; returns x."""
+    def _cycle(self, levels, mats, inv, lvl, b, ctype=None):
+        """One cycle starting with x=0 at level lvl; returns x.
+
+        V: one coarse visit.  W: two coarse visits, both W.  F: an F visit
+        followed by a V correction (``fvm_tpu/linear/amg.py:1106-1128``)."""
+        ctype = ctype or self.cycle_type
         A = mats[lvl]
         if lvl == len(levels):
             return inv @ b
         x = self._smooth(A, torch.zeros_like(b), b,
                          self.nu_pre * self.smoother_sweeps)
-        r = A.residual(x, b)
-        xc = self._cycle(levels, mats, inv, lvl + 1, levels[lvl].restrict(r))
+        rc = levels[lvl].restrict(A.residual(x, b))
+        xc = self._cycle(levels, mats, inv, lvl + 1, rc, ctype)
+        if ctype in ("W", "F") and lvl + 1 < len(levels):
+            xc = xc + self._cycle(levels, mats, inv, lvl + 1,
+                                  mats[lvl + 1].residual(xc, rc),
+                                  "V" if ctype == "F" else "W")
         x = x + levels[lvl].prolong(xc)
         return self._smooth(A, x, b, self.nu_post * self.smoother_sweeps)
+
+    def _cycle0(self, levels, mats, inv, r):
+        """The top-level cycle, cast to bfloat16 and back at its edges
+        under ``precision="bf16"``."""
+        if self.precision == "bf16":
+            z = self._cycle(levels, mats, inv, 0, r.to(torch.bfloat16))
+            return z.to(r.dtype)
+        return self._cycle(levels, mats, inv, 0, r)
 
     def _build_hierarchy(self, A: ELLMatrix):
         levels = self._get_levels(A)
@@ -575,14 +662,19 @@ class AMG(LinearSolver):
         else:
             dense = _dense_from_ell(tail, tail.diag.shape[0])
         # factor once per solve; every coarse solve is then a matmul
-        return levels, mats, torch.linalg.inv(dense)
+        inv, info = torch.linalg.inv_ex(dense)
+        check_info(info, "AMG coarsest-level inverse")
+        if self.precision == "bf16":
+            mats = [_to_bf16(m) for m in mats]
+            inv = inv.to(torch.bfloat16)
+        return levels, mats, inv
 
     # -- public -------------------------------------------------------------
 
     def precond_setup(self, A: ELLMatrix):
         """Build the hierarchy ONCE for this matrix; returns r -> z."""
         levels, mats, inv = self._build_hierarchy(A)
-        return lambda r: self._cycle(levels, mats, inv, 0, r)
+        return lambda r: self._cycle0(levels, mats, inv, r)
 
     def solve_fn(self, A: ELLMatrix, b, x0):
         A, b, recover = condensed(A, b)
@@ -604,7 +696,7 @@ class AMG(LinearSolver):
         x, rn, bx, bnorm = x0, r0n, x0, r0n
         for _ in range(maxit):
             active = torch.isfinite(rn) & (rn < limit) & (rn > target)
-            x_n = x + self._cycle(levels, mats, inv, 0, r)
+            x_n = x + self._cycle0(levels, mats, inv, r)
             r_n = A.residual(x_n, b)
             rn_n = norm(r_n)
             better = active & torch.isfinite(rn_n) & (rn_n < bnorm)
@@ -620,11 +712,12 @@ class DirectSolver(LinearSolver):
     """Dense direct solve (the reference's UMFPACK DirectSolver,
     DirectSolver.cpp:6-83), for small systems and tests.  The JAX package
     solves with its own Gaussian elimination (``linear/dense.gauss_solve``,
-    outside any Pallas kernel); here it is ``torch.linalg.solve``."""
+    outside any Pallas kernel); here it is ``torch.linalg.solve_ex``."""
 
     def solve_fn(self, A: ELLMatrix, b, x0):
         D = _dense_from_ell(A, A.diag.shape[0])
-        x = torch.linalg.solve(D, b)
+        x, info = torch.linalg.solve_ex(D, b)
+        check_info(info, "DirectSolver")
         rn = norm(b - A.mv(x))
         r0 = norm(b - A.mv(x0))
         one = torch.ones((), dtype=torch.int64, device=b.device)

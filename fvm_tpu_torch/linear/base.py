@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..exceptions import SolverError
+
 
 @dataclass
 class SolveStats:
@@ -29,6 +31,24 @@ class SolveStats:
     residual0: torch.Tensor  # initial residual norm
     residual: torch.Tensor  # final residual norm
     converged: torch.Tensor  # bool scalar
+
+
+# (info, what) pairs registered while a CUDA graph is being captured:
+# the capture cannot read them, so the graph's runner checks them after
+# each replay (models/chunk.py)
+_deferred_checks: list | None = None
+
+
+def check_info(info, what: str) -> None:
+    """Raise SolverError when a LAPACK-style ``info`` (from the ``_ex``
+    forms of ``torch.linalg``) is not 0.  While a CUDA graph is captured
+    the check is handed to the graph's runner instead, which makes it
+    after each replay."""
+    if _deferred_checks is not None and info.is_cuda \
+            and torch.cuda.is_current_stream_capturing():
+        _deferred_checks.append((info, what))
+    elif bool((info != 0).any()):
+        raise SolverError(f"{what} failed: info {info.tolist()}")
 
 
 def norm(x):

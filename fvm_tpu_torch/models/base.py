@@ -13,12 +13,16 @@ device tensors and no convergence check reads them back.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
 
+from ..core import rlog
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError, SolverError
+from .chunk import Runner
 
 
 class Model:
@@ -37,6 +41,8 @@ class Model:
             self.bc[g[1]] = bc
             self.bc[g[0]] = bc
         self._initialized = False
+        # chunk (and coupled-loop) runners, dropped by init()
+        self._runners: dict = {}
 
     # --- field helpers ----------------------------------------------------
 
@@ -98,9 +104,108 @@ class Model:
             )
 
     def _log_iteration(self, msg: str) -> None:
-        """Per-iteration residual line, printed when verbose."""
+        """Per-iteration residual line: printed when verbose, else sent to
+        the 'model' rlog channel (reference: rlog info channel and
+        printNormalizedResiduals)."""
         if self.options.get("verbose"):
             print(msg)
+        else:
+            rlog.model(msg)
+
+    def _phase(self, name: str):
+        """Phase tracing context for advance loops, active when the model
+        option ``profile`` is set (reference: per-solver timing dumps)."""
+        if self.options.get("profile"):
+            return rlog.tracer.phase(f"{self.name}/{name}")
+        return contextlib.nullcontext()
+
+    # --- chunked outer loop ----------------------------------------------
+    #
+    # outerChunk > 1 runs up to that many outer (linearize/solve/update)
+    # iterations per dispatch with the convergence test on the device, and
+    # reads one residual block back per chunk instead of one scalar per
+    # outer iteration (the JAX package's lax.while_loop,
+    # fvm_tpu/models/base.py:604-747; the reference's advance loops, e.g.
+    # ThermalModel_impl.h:424-454, pay no per-iteration host sync either).
+    # The chunk is a fixed number of trips in the frozen form; on a CUDA
+    # mesh it is one CUDA graph replay (models/chunk.py).
+
+    def _chunk_size(self, niter: int) -> int:
+        """The active outer-chunk size for advance(niter) (0: the classic
+        per-iteration loop)."""
+        chunk = int(self.options.get("outerChunk") or 0)
+        return chunk if chunk > 1 and niter > 1 else 0
+
+    def _chunk_runner(self, chunk: int) -> Runner:
+        """The chunk of ``chunk`` trips, built (and on a CUDA mesh
+        captured) once per chunk size until the next ``init()``."""
+        runner = self._runners.get(("chunk", chunk))
+        if runner is None:
+            # built from the step, mesh and params, not from the model,
+            # which holds the runner
+            runner = Runner(functools.partial(
+                self._chunk_fn, self._step, self.mesh, self.params), chunk,
+                self.mesh.device)
+            self._runners[("chunk", chunk)] = runner
+        return runner
+
+    @staticmethod
+    def _chunk_fn(step, mesh, params, trips: int):
+        """``trips`` outer steps with the atol/rtol test on ``rnorm``
+        against the initial norm (``scal["norm0"]``, or the first step's
+        norm when it is 0); returns (state, packed) with packed = [the
+        trips' norms (NaN where frozen), count, done, norm0], float64."""
+
+        def chunk_step(inputs, scal):
+            st, bcvals = inputs["state"], inputs["bcvals"]
+            count = torch.zeros((), dtype=torch.int64, device=mesh.device)
+            done = torch.zeros((), dtype=torch.bool, device=mesh.device)
+            hist = []
+            for j in range(trips):
+                st_n, aux = step(mesh, params, st, bcvals)
+                rn = aux["rnorm"]
+                if j == 0:
+                    n0 = torch.where(scal["norm0"] > 0,
+                                     scal["norm0"].to(rn.dtype), rn)
+                    n0t = torch.clamp(n0, min=torch.finfo(rn.dtype).tiny)
+                active = (scal["nmax"] > j) & ~done
+                st = freeze(active, st_n, st)
+                hist.append(torch.where(active, rn, float("nan")))
+                count = count + active
+                done = done | (active & ((rn < scal["atol"])
+                                         | (rn / n0t < scal["rtol"])))
+            return st, pack(hist, count, done, n0)
+
+        return chunk_step
+
+    def _advance_chunked(self, niter: int, chunk: int, bcvals):
+        """Chunked advance: ceil(niter / chunk) dispatches at most, the
+        same residual history and early exit as the per-iteration loop."""
+        opts = self.options
+        runner = self._chunk_runner(chunk)
+        hist = ResidualHistory()
+        it0 = 0
+        while it0 < niter:
+            scal = {
+                "nmax": min(chunk, niter - it0),
+                "atol": float(opts["absoluteTolerance"]),
+                "rtol": float(opts["relativeTolerance"]),
+                "norm0": float(self._initial_norm or 0.0),
+            }
+            with self._phase("step"):
+                self.state, packed = runner(
+                    {"state": self.state, "bcvals": bcvals}, scal)
+            rns, cnt, done, (n0,) = unpack(packed, chunk)
+            if self._initial_norm is None or self._initial_norm == 0.0:
+                self._initial_norm = n0
+            for j, rn in enumerate(rns[:cnt]):
+                self._guard_residual(rn, it0 + j)
+                hist.append((it0 + j, rn))
+                self._log_iteration(f"{self.name}: {it0 + j}: {rn:.6e}")
+            it0 += cnt
+            if done:
+                break
+        return hist
 
     def _group_bcs(self):
         """Yield (group_tuple, bc) for each boundary group."""
@@ -125,3 +230,28 @@ class Model:
 class ResidualHistory(list):
     """Convergence history; printable like the reference's per-iteration
     '<n>: <residual>' lines (ThermalModel_impl.h:443)."""
+
+
+def freeze(active, new: dict, old: dict) -> dict:
+    """The frozen form's state update: ``new`` where ``active`` (a 0-d
+    bool tensor), else ``old``, entry by entry."""
+    return {k: v if v is old[k] else torch.where(active, v, old[k])
+            for k, v in new.items()}
+
+
+def pack(hist, count, done, *norms):
+    """One float64 tensor of a chunk's results, read back in one copy:
+    the stacked norms, then count, done and the initial norms."""
+    tail = [count, done, *norms]
+    return torch.cat([torch.stack(hist).double().reshape(-1),
+                      torch.stack([t.double() for t in tail])])
+
+
+def unpack(packed, trips, width=1):
+    """``pack``'s tensor read back to the host: (the norms of each trip,
+    as floats or ``width``-tuples; count; done; the initial norms)."""
+    vals = packed.cpu().tolist()
+    n = trips * width
+    rows = vals[:n] if width == 1 else [tuple(vals[i:i + width])
+                                        for i in range(0, n, width)]
+    return rows, int(vals[n]), bool(vals[n + 1]), tuple(vals[n + 2:])

@@ -26,6 +26,8 @@ coupled/Newton/Anderson/FMG paths, tangents and adjoints come later.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..core.options import BoundaryCondition, ModelOptions
@@ -37,7 +39,7 @@ from ..ops.halo import maybe_sync, gsum
 from ..ops.gradients import ls_gradient_coefficients, gradient
 from ..linear import AMG, BiCGStab
 from ..exceptions import ConfigError
-from .base import Model, ResidualHistory
+from .base import Model, ResidualHistory, freeze, pack, unpack
 
 
 class FlowBC(BoundaryCondition):
@@ -149,6 +151,7 @@ class FlowModel(Model):
                     ss.setup_structure(*mesh.host_cf(), mesh.device)
 
         self._step = self._build_step()
+        self._runners = {}
         self._norm0 = None
         self._initialized = True
 
@@ -220,8 +223,15 @@ class FlowModel(Model):
         urf_p = float(opts["pressureURF"])
         simplec = str(opts.get("algorithm", "SIMPLE")).upper() == "SIMPLEC"
         n_corr = int(opts.get("nPressureCorrectors", 1))
+        scheme = opts["convectionScheme"]
+        l1_norm = str(opts.get("residualNorm", "L2")).upper() == "L1"
         msolve = opts["momentumLinearSolver"].solve_fn
         psolve = opts["pressureLinearSolver"].solve_fn
+
+        # the step holds its model weakly: the model holds the step and,
+        # through its runners, the CUDA graphs captured from it, so a strong
+        # reference would make a cycle that only the cycle collector frees
+        me = weakref.proxy(self)
 
         def step(mesh, params, state, bcvals):
             n_int = mesh.n_interior_cells
@@ -229,10 +239,10 @@ class FlowModel(Model):
             interior_cells = torch.arange(mesh.n_cells, device=dev) < n_int
             bnd = torch.arange(mesh.n_faces, device=dev) >= mesh.n_interior_faces
 
-            state = self._refresh_ghosts(mesh, params, state, bcvals)
+            state = me._refresh_ghosts(mesh, params, state, bcvals)
             V = state["velocity"]
             p = state["pressure"]
-            bmdot = self._boundary_mass_flux(mesh, params, state, bcvals)
+            bmdot = me._boundary_mass_flux(mesh, params, state, bcvals)
             mdot = torch.where(bnd, bmdot, state["massFlux"])
 
             def identity_ghost_rows(A, r):
@@ -247,13 +257,14 @@ class FlowModel(Model):
 
             # ---- momentum predictor --------------------------------------
             mu_f = disc.harmonic_face_gamma(mesh, params["mu"])
-            # on orthogonal meshes with upwind convection the velocity
-            # gradient is only needed for the non-orthogonal correction
-            gradV = (None if mesh.orthogonal
-                     else maybe_sync(mesh, self._grad(mesh, params, V)))
+            # on orthogonal meshes the velocity gradient is only needed for
+            # the SOU correction (the limited schemes, as in the JAX
+            # package, then run without theirs)
+            needs_gradV = (not mesh.orthogonal) or scheme == "sou"
+            gradV = (maybe_sync(mesh, me._grad(mesh, params, V))
+                     if needs_gradV else None)
             flux = disc.diffusion_flux(mesh, V, mu_f, gradV)
-            flux = flux + disc.convection_flux(mesh, V, mdot,
-                                               opts["convectionScheme"])
+            flux = flux + disc.convection_flux(mesh, V, mdot, scheme, gradV)
             p_f = assembly.cells_to_faces_distance_weighted(mesh, p)
             flux = FaceFlux(F=flux.F + p_f[:, None] * mesh.face_area,
                             dF_dO=flux.dF_dO, dF_dN=flux.dF_dN)
@@ -270,7 +281,13 @@ class FlowModel(Model):
             A, r = assembly.assemble(mesh, flux, r_cell=r_cell,
                                      diag_cell=diag_cell)
             A, r = identity_ghost_rows(A, r)
-            mom_norm = A.norm(r)
+            if l1_norm:
+                # the reference's convergence.dat records the L1 momentum
+                # residual of the first component (testFlowParallel.py)
+                mom_norm = torch.sum(torch.abs(
+                    torch.where(interior_cells[:, None], r, 0.0)[:, 0]))
+            else:
+                mom_norm = A.norm(r)
             Aur = A.replace(diag=torch.where(interior_cells, A.diag / urf_v,
                                              A.diag))
             dV, _ = msolve(Aur, r, torch.zeros_like(r))
@@ -301,7 +318,7 @@ class FlowModel(Model):
                 vol_corr = vol_over_ap
                 Df_corr = Df
             pres_face = torch.zeros(mesh.n_faces, dtype=torch.bool, device=dev)
-            for g, bc in self._group_bcs():
+            for g, bc in me._group_bcs():
                 if bc.bc_type == "PressureBoundary":
                     pres_face[mesh.group_faces(g)] = True
             Df_cont = torch.where(bnd & ~pres_face, 0.0, Df_corr)
@@ -310,16 +327,16 @@ class FlowModel(Model):
             # PISO-style correctors, each rebuilding the Rhie-Chow flux)
             cont_norm = None
             for _corr in range(n_corr):
-                state2 = self._refresh_ghosts(
+                state2 = me._refresh_ghosts(
                     mesh, params, dict(state, velocity=V, pressure=p), bcvals)
                 V = state2["velocity"]
                 Vbar = assembly.cells_to_faces_distance_weighted(mesh, V)
-                gradp = maybe_sync(mesh, self._grad(mesh, params, p))
+                gradp = maybe_sync(mesh, me._grad(mesh, params, p))
                 gpbar = assembly.cells_to_faces_distance_weighted(mesh, gradp)
                 dp = mesh.take_nbr(p) - mesh.take_owner(p)
                 rc = Df * (dp - (gpbar * mesh.face_ds).sum(dim=1))
                 mdot_int = rho_f * (Vbar * mesh.face_area).sum(dim=1) - rc
-                bmdot = self._boundary_mass_flux(mesh, params, state2, bcvals)
+                bmdot = me._boundary_mass_flux(mesh, params, state2, bcvals)
                 mdot = torch.where(bnd, bmdot, mdot_int)
 
                 cont_flux = FaceFlux(F=mdot, dF_dO=Df_cont, dF_dN=-Df_cont)
@@ -327,11 +344,11 @@ class FlowModel(Model):
                 Ap, rp = identity_ghost_rows(Ap, rp)
                 if cont_norm is None:
                     cont_norm = Ap.norm(rp)
-                if not self._has_pressure_bc:
+                if not me._has_pressure_bc:
                     Ap = Ap.replace(
                         diag=Ap.diag * (1.0 + 1e6 * params["pin_mask"]))
                 pc, _ = psolve(Ap, rp, torch.zeros_like(rp))
-                if not self._has_pressure_bc:
+                if not me._has_pressure_bc:
                     # subtract a consistent global level
                     num = gsum(mesh, torch.where(interior_cells, pc, 0.0).sum())
                     den = gsum(mesh, interior_cells.to(pc.dtype).sum())
@@ -341,7 +358,7 @@ class FlowModel(Model):
                 # corrections (reference postContinuitySolve :1263)
                 p = p + urf_p * pc
                 pc_s = maybe_sync(mesh, pc)
-                gradpc = maybe_sync(mesh, self._grad(mesh, params, pc_s))
+                gradpc = maybe_sync(mesh, me._grad(mesh, params, pc_s))
                 V = V - vol_corr[:, None] * gradpc
                 dmdot = -Df_corr * (mesh.take_nbr(pc_s) - mesh.take_owner(pc_s))
                 mdot = torch.where(bnd & ~pres_face, mdot, mdot + dmdot)
@@ -365,9 +382,13 @@ class FlowModel(Model):
         hist = ResidualHistory()
         bcvals = self._resolve_bcvals()
         sync = self._residual_sync()
+        chunk = self._chunk_size(niter)
+        if chunk and sync:
+            return self._advance_chunked(niter, chunk, bcvals)
         for it in range(niter):
-            self.state, aux = self._step(self.mesh, self.params, self.state,
-                                         bcvals)
+            with self._phase("step"):
+                self.state, aux = self._step(self.mesh, self.params,
+                                             self.state, bcvals)
             if not sync:
                 hist.append((it, aux["mom_norm"], aux["cont_norm"]))
                 continue
@@ -384,6 +405,74 @@ class FlowModel(Model):
                 mom_norm / self._norm0[0] < opts["momentumTolerance"]
                 and cont_norm / self._norm0[1] < opts["continuityTolerance"]
             ) or max(mom_norm, cont_norm) < opts["absoluteTolerance"]:
+                break
+        return hist
+
+    @staticmethod
+    def _chunk_fn(step, mesh, params, trips: int):
+        """Flow variant of ``Model._chunk_fn``: the (momentum, continuity)
+        pair against its initial norms, as the JAX package's
+        ``_build_chunk_step_flow`` (fvm_tpu/models/flow.py:1868-1931);
+        packed = [the trips' (mom, cont) norms, count, done, m0, c0]."""
+
+        def chunk_step(inputs, scal):
+            st, bcvals = inputs["state"], inputs["bcvals"]
+            count = torch.zeros((), dtype=torch.int64, device=mesh.device)
+            done = torch.zeros((), dtype=torch.bool, device=mesh.device)
+            hist = []
+            for j in range(trips):
+                st_n, aux = step(mesh, params, st, bcvals)
+                mn, cn = aux["mom_norm"], aux["cont_norm"]
+                if j == 0:
+                    tiny = torch.finfo(mn.dtype).tiny
+                    m0 = torch.where(scal["mnorm0"] > 0,
+                                     scal["mnorm0"].to(mn.dtype),
+                                     torch.clamp(mn, min=tiny))
+                    c0 = torch.where(scal["cnorm0"] > 0,
+                                     scal["cnorm0"].to(cn.dtype),
+                                     torch.clamp(cn, min=tiny))
+                active = (scal["nmax"] > j) & ~done
+                st = freeze(active, st_n, st)
+                hist.append(torch.where(active, torch.stack([mn, cn]),
+                                        float("nan")))
+                count = count + active
+                conv = (((mn / m0 < scal["mtol"]) & (cn / c0 < scal["ctol"]))
+                        | (torch.maximum(mn, cn) < scal["atol"]))
+                done = done | (active & conv)
+            return st, pack(hist, count, done, m0, c0)
+
+        return chunk_step
+
+    def _advance_chunked(self, niter: int, chunk: int, bcvals):
+        """Chunked flow advance (``_advance_chunked_flow``,
+        fvm_tpu/models/flow.py:1933-1972)."""
+        opts = self.options
+        runner = self._chunk_runner(chunk)
+        hist = ResidualHistory()
+        it0 = 0
+        while it0 < niter:
+            m0, c0 = self._norm0 or (0.0, 0.0)
+            scal = {
+                "nmax": min(chunk, niter - it0),
+                "mtol": float(opts["momentumTolerance"]),
+                "ctol": float(opts["continuityTolerance"]),
+                "atol": float(opts["absoluteTolerance"]),
+                "mnorm0": float(m0),
+                "cnorm0": float(c0),
+            }
+            with self._phase("step"):
+                self.state, packed = runner(
+                    {"state": self.state, "bcvals": bcvals}, scal)
+            rns, cnt, done, norm0 = unpack(packed, chunk, width=2)
+            if self._norm0 is None:
+                self._norm0 = norm0
+            for j, (mn, cn) in enumerate(rns[:cnt]):
+                self._guard_residual(mn, it0 + j)
+                hist.append((it0 + j, mn, cn))
+                self._log_iteration(
+                    f"{self.name}: {it0 + j}: mom {mn:.6e} cont {cn:.6e}")
+            it0 += cnt
+            if done:
                 break
         return hist
 

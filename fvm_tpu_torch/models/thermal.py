@@ -13,6 +13,8 @@ boundaries and tangents come later.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..core.options import BoundaryCondition, ModelOptions
@@ -118,6 +120,7 @@ class ThermalModel(Model):
                 s.setup_structure(*mesh.host_cf(), mesh.device)
 
         self._step = self._build_step()
+        self._runners = {}
         self._initial_norm = None
         self._initialized = True
 
@@ -135,7 +138,7 @@ class ThermalModel(Model):
         flux = disc.diffusion_flux(mesh, T, gamma_f, gradT)
         if opts["convective"]:
             flux = flux + disc.convection_flux(
-                mesh, T, state["massFlux"], opts["convectionScheme"]
+                mesh, T, state["massFlux"], opts["convectionScheme"], gradT
             )
 
         # phase 1: flux patches on boundary groups
@@ -196,8 +199,13 @@ class ThermalModel(Model):
         solver = self.options["linearSolver"]
         urf = float(self.options["urf"])
 
+        # the step holds its model weakly: the model holds the step and,
+        # through its runners, the CUDA graphs captured from it, so a strong
+        # reference would make a cycle that only the cycle collector frees
+        me = weakref.proxy(self)
+
         def step(mesh, params, state, bcvals):
-            A, r = self._linearize(mesh, params, state, bcvals)
+            A, r = me._linearize(mesh, params, state, bcvals)
             rnorm = A.norm(r)
             dx, stats = solver.solve_fn(A, r, torch.zeros_like(r))
             state = dict(state)
@@ -219,9 +227,13 @@ class ThermalModel(Model):
         hist = ResidualHistory()
         bcvals = self._resolve_bcvals()
         sync = self._residual_sync()
+        chunk = self._chunk_size(niter)
+        if chunk:
+            return self._advance_chunked(niter, chunk, bcvals)
         for it in range(niter):
-            self.state, aux = self._step(self.mesh, self.params, self.state,
-                                         bcvals)
+            with self._phase("step"):
+                self.state, aux = self._step(self.mesh, self.params,
+                                             self.state, bcvals)
             if not sync:
                 hist.append((it, aux["rnorm"]))
                 continue

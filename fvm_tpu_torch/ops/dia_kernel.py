@@ -10,7 +10,14 @@ offsets d (D <= 16),
 in three fused modes: ``mv`` y = Ax, ``residual`` y = b - Ax and ``jacobi``
 y = x + omega (b - Ax) / diag, on x, b of shape (n,) or (n, m), m <= 3,
 row-major (the port's public layout: no transpose, unlike the Pallas
-wrapper's (m, n)), in float32 or float64 (Hopper has native f64).
+wrapper's (m, n)), in float32, float64 (Hopper has native f64) or
+bfloat16 (``AMG(precision="bf16")``).
+
+bfloat16 rounds in one place: the operands are read as bfloat16, every
+product and sum is taken in float32 in the float32 order, and the result
+is rounded to bfloat16 once, on the store.  The plain version does the
+same (float32 arithmetic on the widened operands, one rounding at the
+end), so kernel and plain version agree bit for bit in bfloat16 too.
 
 Bound on this card: bytes.  Each call must read diag (n), the D
 coefficient rows (D n), x (n m) and, for residual/jacobi, b (n m), and
@@ -31,7 +38,9 @@ one compare (``WIDE_MIN_ROWS``):
   the same unrolled, all-loads-first form.
 
 For m >= 2 right-hand sides ``wide`` also takes one row per thread, so
-there the two variants are the same code under two names.
+there the two variants are the same code under two names.  bfloat16 has
+one variant, ``narrow`` (``csrc/dia_stencil_bf16.cu``, one row per
+thread), at every n.
 
 Operand layout: ``coef`` is the (D, n) view ``storage[:, :n]`` of a
 (D, ld) storage whose row stride ld is a multiple of ``COEF_ALIGN``
@@ -68,13 +77,19 @@ WIDE_MIN_ROWS = 1 << 18
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "dia_stencil.cu")
+SOURCE_BF16 = os.path.join(_PKG_DIR, "csrc", "dia_stencil_bf16.cu")
 _VARIANT_FLAGS = {"narrow": ["-DDIA_NARROW"], "wide": []}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 # -fmad=false: no FMA contraction, so the kernel rounds like the plain
 # version and the two agree bit for bit
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-_DTYPES = {torch.float32: ("f32", []), torch.float64: ("f64", ["-DDIA_F64"])}
+_DTYPES = {torch.float32: ("f32", []), torch.float64: ("f64", ["-DDIA_F64"]),
+           torch.bfloat16: ("bf16", ["-DDIA_BF16"])}
+# the (variant, dtype) libraries built, and the source of each
+_BUILDS = {(v, dt): SOURCE for v in VARIANTS
+           for dt in (torch.float32, torch.float64)}
+_BUILDS["narrow", torch.bfloat16] = SOURCE_BF16
 _MODE_INDEX = {m: i for i, m in enumerate(MODES)}
 
 
@@ -90,8 +105,26 @@ def empty_coef(D: int, n: int, dtype, device) -> torch.Tensor:
 
 def pack_coef(coef: torch.Tensor) -> torch.Tensor:
     """``coef`` (D, n) copied into the kernel's layout."""
-    out = empty_coef(coef.shape[0], coef.shape[1], coef.dtype, coef.device)
+    return cast_coef(coef, coef.dtype)
+
+
+def cast_coef(coef: torch.Tensor, dtype) -> torch.Tensor:
+    """``coef`` (D, n) converted to ``dtype`` in the kernel's layout."""
+    out = empty_coef(coef.shape[0], coef.shape[1], dtype, coef.device)
     return out.copy_(coef)
+
+
+def variants(dtype) -> tuple:
+    """The variants built for an element type."""
+    return tuple(v for v in VARIANTS if (v, dtype) in _BUILDS)
+
+
+def dispatch(n: int, dtype) -> str:
+    """The variant a call on n rows takes: by n alone, but bfloat16 has
+    only ``narrow``."""
+    if n >= WIDE_MIN_ROWS and ("wide", dtype) in _BUILDS:
+        return "wide"
+    return "narrow"
 
 
 def coef_packed(coef: torch.Tensor) -> bool:
@@ -112,7 +145,13 @@ def diag_ready(diag: torch.Tensor) -> bool:
 def dia_stencil_plain(offsets, mode, coef, diag, x, b=None, omega=None):
     """Plain PyTorch version: zero-padded shifts (``F.pad`` + slices), the
     same accumulation order as the kernel and as the JAX roll formula
-    (diag term first, then the offsets in order)."""
+    (diag term first, then the offsets in order).  bfloat16 operands are
+    widened to float32 and the result rounded once (module docstring)."""
+    if x.dtype == torch.bfloat16:
+        f = torch.float32
+        return dia_stencil_plain(
+            offsets, mode, coef.to(f), diag.to(f), x.to(f),
+            b=None if b is None else b.to(f), omega=omega).to(x.dtype)
     n = x.shape[0]
     maxd = max((abs(int(d)) for d in offsets), default=0)
     pad = (maxd, maxd) if x.ndim == 1 else (0, 0, maxd, maxd)
@@ -173,11 +212,11 @@ def ptxas_summary(report: str) -> str:
 
 
 def build(verbose: bool = False) -> dict:
-    """Compile the two variants, once per element type, with nvcc into
-    ``build/kernels`` (on first use, from the repository's sources only;
-    the four compilations run in parallel) and load them.  Returns the
-    entry points keyed by (variant, dtype).  With ``verbose`` one ptxas
-    summary line per library is printed."""
+    """Compile the two variants in float32 and float64 and the bfloat16
+    one with nvcc into ``build/kernels`` (on first use, from the
+    repository's sources only; the five compilations run in parallel) and
+    load them.  Returns the entry points keyed by (variant, dtype).  With
+    ``verbose`` one ptxas summary line per library is printed."""
     global _fns
     with _lib_lock:
         if _fns is not None:
@@ -185,18 +224,17 @@ def build(verbose: bool = False) -> dict:
         os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         jobs = []
-        for variant, vdefs in _VARIANT_FLAGS.items():
-            for dtype, (suffix, defs) in _DTYPES.items():
-                so = os.path.join(BUILD_DIR,
-                                  f"libdia_{variant}_{suffix}.so")
-                # build under a private name, then rename: a process that
-                # loads the library never sees another's half-written file
-                tmp = f"{so}.{os.getpid()}.tmp"
-                cmd = [nvcc, *_NVCC_FLAGS, *vdefs, *defs, "-Xptxas", "-v",
-                       "-o", tmp, SOURCE]
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True)
-                jobs.append((variant, dtype, suffix, so, tmp, proc))
+        for (variant, dtype), source in _BUILDS.items():
+            suffix, defs = _DTYPES[dtype]
+            so = os.path.join(BUILD_DIR, f"libdia_{variant}_{suffix}.so")
+            # build under a private name, then rename: a process that
+            # loads the library never sees another's half-written file
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [nvcc, *_NVCC_FLAGS, *_VARIANT_FLAGS[variant], *defs,
+                   "-Xptxas", "-v", "-o", tmp, source]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((variant, dtype, suffix, so, tmp, proc))
         fns, failed, report = {}, [], []
         for variant, dtype, suffix, so, tmp, proc in jobs:
             out = proc.communicate()[0]
@@ -270,7 +308,9 @@ def _launch(offsets, mode, coef, diag, x, b, omega, variant=None):
     c_offs, D = _c_offsets(offsets)
     n = x.shape[0]
     if variant is None:
-        variant = "wide" if n >= WIDE_MIN_ROWS else "narrow"
+        variant = dispatch(n, x.dtype)
+    elif (variant, x.dtype) not in _BUILDS:
+        raise ValueError(f"dia_stencil: no {variant} variant for {x.dtype}")
     fn = (_fns if _fns is not None else build())[variant, x.dtype]
     y = torch.empty_like(x)
     args = (coef.data_ptr(), coef.stride(0), diag.data_ptr(), x.data_ptr(),
@@ -285,7 +325,7 @@ def _launch(offsets, mode, coef, diag, x, b, omega, variant=None):
     if err != 0:
         raise RuntimeError(f"dia_stencil launch failed: CUDA error {err}")
     dia_stencil.launches[mode] += 1
-    key = (variant, mode, n)
+    key = (_DTYPES[x.dtype][0], variant, mode, n)
     dia_stencil.shapes[key] = dia_stencil.shapes.get(key, 0) + 1
     return y
 
@@ -306,9 +346,9 @@ def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
     return _launch(offsets, mode, coef, diag, x, b, omega)
 
 
-# launches of the CUDA kernels per mode, and per (variant, mode, rows): the
-# second shows which variant took each level (the plain version counts
-# nothing)
+# launches of the CUDA kernels per mode and per (element type "f32" /
+# "f64" / "bf16", variant, mode, rows): the second shows which variant
+# took each level (the plain version counts nothing)
 dia_stencil.launches = {m: 0 for m in MODES}
 dia_stencil.shapes = {}
 
@@ -316,8 +356,24 @@ dia_stencil.shapes = {}
 def variant_launches() -> dict:
     """Launches per variant since the last reset."""
     out = {v: 0 for v in VARIANTS}
-    for (variant, _, _), count in dia_stencil.shapes.items():
+    for (_, variant, _, _), count in dia_stencil.shapes.items():
         out[variant] += count
+    return out
+
+
+def type_tag(dtype) -> str:
+    """The element type's tag in ``dia_stencil.shapes`` ("f32", ...)."""
+    return _DTYPES[dtype][0]
+
+
+def type_launches(dtype, shapes: dict | None = None) -> dict:
+    """Launches per mode of one element type in ``shapes`` (a dict keyed
+    as ``dia_stencil.shapes``; default the live counter)."""
+    out = {m: 0 for m in MODES}
+    for (tag, _, mode, _), count in (
+            dia_stencil.shapes if shapes is None else shapes).items():
+        if tag == type_tag(dtype):
+            out[mode] += count
     return out
 
 

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
+from ..exceptions import ConfigError
 from .assembly import FaceFlux
+from .limiters import LIMITERS, limited_sou_correction
 
 
 def harmonic_face_gamma(mesh, gamma_cell):
@@ -51,22 +53,58 @@ def diffusion_flux(mesh, phi, gamma_face, grad_phi=None) -> FaceFlux:
     return FaceFlux(F=F, dF_dO=dO, dF_dN=-dO)
 
 
-def convection_flux(mesh, phi, mass_flux, scheme: str = "upwind") -> FaceFlux:
-    """F = mdot * phi_face with implicit first-order upwind weighting.
+SCHEMES = ("upwind", "central", "sou") + tuple(LIMITERS)
+
+
+def convection_flux(mesh, phi, mass_flux, scheme: str = "upwind",
+                    grad_phi=None) -> FaceFlux:
+    """F = mdot * phi_face with implicit upwind weighting.
 
     mass_flux (nf,) is the mass flow through each face along the face area
-    vector (owner -> neighbor).  Central, SOU and limited schemes are not
-    ported yet."""
-    if scheme != "upwind":
-        raise NotImplementedError(f"convection scheme {scheme!r} not ported")
-    dO = mass_flux.clamp(min=0.0)
-    dN = mass_flux.clamp(max=0.0)
+    vector (owner -> neighbor).  scheme: 'upwind' (first order, implicit),
+    'central', 'sou' (deferred second-order upwind) or a limiter name
+    ('vanLeer' | 'minmod' | 'superbee') for limited SOU; the deferred
+    corrections need ``grad_phi`` and are skipped without it, as in the
+    JAX package (ConvectionDiscretization.h, FluxLimiters.h:19-41)."""
+    if scheme not in SCHEMES:
+        raise ConfigError(f"unknown convection scheme {scheme!r}; "
+                          f"known: {SCHEMES}")
+    if scheme == "central":
+        dO = 0.5 * mass_flux
+        dN = 0.5 * mass_flux
+    else:
+        dO = mass_flux.clamp(min=0.0)
+        dN = mass_flux.clamp(max=0.0)
     po = mesh.take_owner(phi)
     pn = mesh.take_nbr(phi)
     if phi.ndim == 1:
         F = dO * po + dN * pn
     else:
         F = dO[:, None] * po + dN[:, None] * pn
+    if scheme in LIMITERS and grad_phi is not None:
+        if phi.ndim == 1:
+            F = F + limited_sou_correction(mesh, phi, mass_flux, grad_phi,
+                                           scheme)
+        else:
+            F = torch.stack([
+                F[:, m] + limited_sou_correction(
+                    mesh, phi[:, m], mass_flux, grad_phi[:, m], scheme)
+                for m in range(phi.shape[1])], dim=1)
+    if scheme == "sou" and grad_phi is not None:
+        # deferred correction: extrapolate from the upwind cell centroid
+        up_is_owner = mass_flux >= 0
+        go_, gn_ = mesh.take_owner(grad_phi), mesh.take_nbr(grad_phi)
+        co_ = mesh.take_owner(mesh.cell_centroid)
+        cn_ = mesh.take_nbr(mesh.cell_centroid)
+        sel = up_is_owner.reshape((-1,) + (1,) * (grad_phi.ndim - 1))
+        gup = torch.where(sel, go_, gn_)
+        xup = torch.where(up_is_owner[:, None], co_, cn_)
+        dx = mesh.face_centroid - xup
+        corr = torch.einsum("f...d,fd->f...", gup, dx)
+        if phi.ndim == 1:
+            F = F + mass_flux * corr
+        else:
+            F = F + mass_flux[:, None] * corr
     return FaceFlux(F=F, dF_dO=dO, dF_dN=dN)
 
 

@@ -76,18 +76,21 @@ class ELLMatrix:
         vIn = offv[ik, ir]
         # index_add sums repeated rows (a row with several eliminated
         # neighbours); index assignment would drop all but one
+        # (index_fill_ and a device zero, not index assignment of a Python
+        # number, which copies it from the host: a CUDA graph can capture
+        # this)
         diag2 = self.diag.index_add(0, ir, -vIn * vE[ie] / dE[ie])
-        diag2[er] = 1.0
+        diag2.index_fill_(0, er, 1.0)
         # zero eliminated couplings in the VALUES too
         off2 = offv.clone()
-        off2[ik, ir] = 0.0
-        off2[:, er] = 0.0
+        off2.index_put_((ik, ir), offv.new_zeros(()))
+        off2.index_fill_(1, er, 0.0)
         bE = b[er]
         if b.ndim == 1:
             b2 = b.index_add(0, ir, -vIn / dE[ie] * bE[ie])
         else:
             b2 = b.index_add(0, ir, -(vIn / dE[ie])[:, None] * bE[ie])
-        b2[er] = 0.0
+        b2.index_fill_(0, er, 0.0)
         A2 = self.replace(
             diag=diag2, off=off2, dia=plan.dia2,
             dia_coef=None, dia_fb_vals=None,

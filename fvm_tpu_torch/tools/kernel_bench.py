@@ -110,17 +110,25 @@ def _limit(nbytes, nops):
     return ops_ms, "operations", nbytes, nops
 
 
-def _profile(run):
+def _profile(run, sessions=3):
+    """The device events of ``run()`` under torch.profiler.  A short
+    session now and then comes back without the card's activity records
+    (once on an H100, at a 1,024-row level): ``run`` is profiled again,
+    up to ``sessions`` times, before the empty list is returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        run()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            return events
+    return []
 
 
 def time_device(fns, reps):

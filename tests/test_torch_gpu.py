@@ -14,12 +14,16 @@ and sum in the plain version's order, so each must equal the plain
 version exactly: max abs error 0.
 """
 
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 import torch
 
 from fvm_tpu_torch import hostlib
-from fvm_tpu_torch.cases import coupled_cavity, coupled_cavity_3d, coupled_step
+from fvm_tpu_torch.cases import (coupled_cavity, coupled_cavity_3d,
+                                 coupled_step, coupled_steps)
 from fvm_tpu_torch.linear import AMG
 from fvm_tpu_torch.linear.amg import aggregate_plain
 from fvm_tpu_torch.mesh import build_device_mesh
@@ -170,8 +174,10 @@ def test_variant_counters(cuda):
         dk.dia_stencil(offsets, "mv", coef, diag, x)
     torch.cuda.synchronize()
     assert dk.dia_stencil.shapes == {
-        ("narrow", "residual", small): 1, ("narrow", "mv", small): 1,
-        ("wide", "residual", large): 1, ("wide", "mv", large): 1,
+        ("f32", "narrow", "residual", small): 1,
+        ("f32", "narrow", "mv", small): 1,
+        ("f32", "wide", "residual", large): 1,
+        ("f32", "wide", "mv", large): 1,
     }
     assert dk.variant_launches() == {"narrow": 2, "wide": 2}
     assert dk.dia_stencil.launches == {"mv": 2, "residual": 2, "jacobi": 0}
@@ -302,3 +308,251 @@ def test_host_aggregation_helper_matches_numpy_loop(cuda, mesh):
     cols = np.asarray(cols, dtype=np.int64)
     np.testing.assert_array_equal(hostlib.aggregate(cols, mask),
                                   aggregate_plain(cols, mask))
+
+
+# --- bfloat16, graph replays and the options of the cavity path ----------
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic PyTorch algorithms (``index_add`` without atomics)."""
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old)
+
+
+@pytest.mark.parametrize("mesh", ["quad_2d", "hex_3d"])
+def test_bf16_kernel_every_amg_level(cuda, mesh):
+    """The bfloat16 kernel (one variant, narrow) bit-exact against the
+    plain version (float32 arithmetic, one rounding) at every DIA level of
+    the 1024^2 structured and the 24^3 greedy hierarchy, every mode,
+    (n,) and (n, 2) / (n, 3)."""
+    if mesh == "quad_2d":
+        dmesh = build_device_mesh(quad_2d(1024, 1024), dtype="float32",
+                                  device=cuda)
+        ms = (1, 2)
+    else:
+        dmesh = build_device_mesh(hex_3d(24, 24, 24), dtype="float32",
+                                  device=cuda)
+        ms = (1, 3)
+    assert dk.variants(torch.bfloat16) == ("narrow",)
+    levels = [s for s in level_shapes(AMG(coarse_size=256), dmesh)
+              if s.offsets is not None]
+    assert levels
+    for s in levels:
+        for m in ms:
+            coef, diag, x, b = _operator(s.rows, s.offsets, torch.bfloat16,
+                                         cuda, m)
+            for mode in dk.MODES:
+                y = _exact(s.offsets, mode, coef, diag, x, b, "narrow")
+                assert y.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="no wide variant"):
+        dk._launch(s.offsets, "mv", coef, diag, x, None, None,
+                   variant="wide")
+
+
+def test_bf16_amg_launches_the_kernel(cuda):
+    """AMG(precision="bf16") on a CUDA tensor runs its DIA levels through
+    the bfloat16 kernel; the solve agrees with the CPU's to a few bf16
+    units (the coarse matmul and the sums round in another order)."""
+    def solve(device):
+        flow, thermal = coupled_cavity(64, device=device, dtype="float32")
+        amg = AMG(coarse_size=256, precision="bf16",
+                  relative_tolerance=1e-3, max_iterations=6)
+        thermal.options["linearSolver"] = amg
+        thermal.init()
+        A, r = thermal._linearize(thermal.mesh, thermal.params,
+                                  thermal.state, thermal._resolve_bcvals())
+        return amg.solve_fn(A, r, torch.zeros_like(r))[0]
+
+    dk.reset_launches()
+    x = solve(cuda)
+    torch.cuda.synchronize()
+    assert sum(dk.type_launches(torch.bfloat16).values()) > 0
+    x_cpu = solve("cpu")
+    err = float((x.cpu() - x_cpu).norm() / x_cpu.norm())
+    assert err <= 4 * 2.0 ** -8, err
+
+
+def _thermal_chunked(device, chunk, n=32):
+    from fvm_tpu_torch.models import ThermalModel
+    t = ThermalModel(build_device_mesh(quad_2d(n, n), dtype="float64",
+                                       device=device))
+    t.options["verbose"] = False
+    t.options["relativeTolerance"] = 1e-30
+    t.options["absoluteTolerance"] = 0.0
+    # under-relaxed, so the residual halves each outer and never reaches 0
+    t.options["urf"] = 0.5
+    t.options["outerChunk"] = chunk
+    t.bc["left"].bc_type = "SpecifiedTemperature"
+    t.bc["left"]["specifiedTemperature"] = 400.0
+    t.bc["right"].bc_type = "SpecifiedHeatFlux"
+    t.bc["right"]["specifiedHeatFlux"] = 10.0
+    t.bc["bottom"].bc_type = "Symmetry"
+    t.bc["top"].bc_type = "Symmetry"
+    t.init()
+    return t
+
+
+def _flow_chunked(device, chunk, n=32):
+    from fvm_tpu_torch.models import FlowModel
+    f = FlowModel(build_device_mesh(quad_2d(n, n), dtype="float64",
+                                    device=device))
+    f.options["verbose"] = False
+    f.options["outerChunk"] = chunk
+    for g in ("left", "right", "bottom", "top"):
+        f.bc[g].bc_type = "NoSlipWall"
+    f.bc["top"]["specifiedXVelocity"] = 1.0
+    f.init()
+    return f
+
+
+@pytest.mark.parametrize("model", ["thermal", "flow"])
+def test_chunked_advance_replays_the_graph(cuda, model):
+    """advance(n) with outerChunk > 1 on the card is a CUDA graph replay
+    per chunk and equals the eager per-step loop on the card bit for bit,
+    and the CPU to 1e-10."""
+    make = _thermal_chunked if model == "thermal" else _flow_chunked
+    eager, chunked, cpu = make(cuda, 0), make(cuda, 4), make("cpu", 4)
+    h0 = eager.advance(9)
+    h1 = chunked.advance(9)
+    h2 = cpu.advance(9)
+    runner = chunked._runners[("chunk", 4)]
+    assert runner.graph is not None and runner.replays == 3
+    assert [tuple(map(float, h)) for h in h0] == [
+        tuple(map(float, h)) for h in h1]
+    np.testing.assert_allclose([h[1:] for h in h1], [h[1:] for h in h2],
+                               rtol=1e-10)
+    key = "T" if model == "thermal" else "velocity"
+    assert torch.equal(eager.state[key], chunked.state[key])
+    assert sum(runner.captured[0].values()) > 0  # dia_stencil in the graph
+
+
+@pytest.mark.parametrize("make,n", [(coupled_cavity, 32),
+                                    (coupled_cavity_3d, 8)],
+                         ids=["2d", "3d"])
+def test_coupled_steps_replay_equals_eager(cuda, make, n):
+    """cases.coupled_steps on the card (one graph replay) against the eager
+    per-step loop on the card: bit for bit in 2D, and in 3D with
+    deterministic algorithms (the greedy levels' index_add adds with
+    atomics otherwise); against the CPU to 1e-8."""
+    ctx = _deterministic() if make is coupled_cavity_3d else \
+        contextlib.nullcontext()
+    with ctx:
+        fe, te = make(n, device=cuda, dtype="float64")
+        eager = torch.tensor([[float(v) for v in coupled_step(fe, te)]
+                              for _ in range(5)], dtype=torch.float64)
+        fg, tg = make(n, device=cuda, dtype="float64")
+        dk.reset_launches()
+        graph = torch.cat([coupled_steps(fg, tg, 5)]).cpu()
+        torch.cuda.synchronize()
+    assert torch.equal(graph, eager)
+    assert torch.equal(fe.state["velocity"], fg.state["velocity"])
+    assert torch.equal(te.state["T"], tg.state["T"])
+    runner = fg._runners[("coupled", tg, 5)]
+    assert sum(runner.captured[0].values()) > 0
+    fc, tc = make(n, device="cpu", dtype="float64")
+    np.testing.assert_allclose(graph.numpy(),
+                               coupled_steps(fc, tc, 5).numpy(), rtol=1e-8)
+
+
+def test_graph_replay_takes_new_boundary_values(cuda):
+    """Boundary values are graph inputs: a changed lid speed reaches the
+    next replay (compared with the eager loop from the same state)."""
+    fe, te = coupled_cavity(16, device=cuda, dtype="float64")
+    fg, tg = coupled_cavity(16, device=cuda, dtype="float64")
+    coupled_step(fe, te)
+    coupled_steps(fg, tg, 1)
+    for f in (fe, fg):
+        f.bc["top"]["specifiedXVelocity"] = 2.0
+    a = torch.stack(coupled_step(fe, te)).cpu()
+    b = coupled_steps(fg, tg, 1)[0].cpu()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("option", [
+    "amg-W", "amg-F", "cg+jacobi", "gmres", "sou", "vanLeer", "L1"])
+def test_options_cuda_match_cpu(cuda, option):
+    """Each option of the cavity path on the card against the CPU,
+    float64, 32^2: histories to 1e-8."""
+    from fvm_tpu_torch.linear import CG, GMRES, JacobiSolver
+
+    def run(device):
+        flow, thermal = coupled_cavity(32, device=device, dtype="float64")
+        if option.startswith("amg-"):
+            flow.options["pressureLinearSolver"] = AMG(
+                coarse_size=256, cycle=option[-1], relative_tolerance=1e-3,
+                max_iterations=6)
+        elif option == "cg+jacobi":
+            flow.options["pressureLinearSolver"] = CG(
+                preconditioner=JacobiSolver(sweeps=3),
+                relative_tolerance=1e-3, max_iterations=100)
+        elif option == "gmres":
+            flow.options["momentumLinearSolver"] = GMRES(
+                restart=10, relative_tolerance=1e-2, max_iterations=10)
+        elif option == "sou":
+            flow.options["convectionScheme"] = "sou"
+        elif option == "vanLeer":
+            thermal.options["convectionScheme"] = "vanLeer"
+        else:
+            flow.options["residualNorm"] = "L1"
+        flow.init()
+        thermal.init()
+        return [[float(v) for v in coupled_step(flow, thermal)]
+                for _ in range(3)]
+
+    np.testing.assert_allclose(run(cuda), run("cpu"), rtol=1e-8)
+
+
+def test_bf16_coupled_steps_replay_equals_eager(cuda):
+    """Both AMG solvers in bfloat16 (bench's FVM_BENCH_AMG_PREC=bf16): the
+    graph replay launches the bfloat16 kernel and equals the eager loop on
+    the card bit for bit."""
+    fe, te = coupled_cavity(32, device=cuda, dtype="float32",
+                            amg_precision="bf16")
+    eager = torch.stack([torch.stack(coupled_step(fe, te))
+                         for _ in range(3)]).cpu()
+    fg, tg = coupled_cavity(32, device=cuda, dtype="float32",
+                            amg_precision="bf16")
+    graph = coupled_steps(fg, tg, 3).cpu()
+    assert torch.equal(graph, eager)
+    captured = fg._runners[("coupled", tg, 3)].captured[1]
+    assert dk.type_launches(torch.bfloat16, captured)["jacobi"] > 0
+
+
+def test_capture_survives_dead_graphs(cuda):
+    """Models dropped with their captured graphs free them at once (no
+    reference cycle holds them), so a collector that runs often cannot
+    free one of those graphs while another capture runs."""
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for _ in range(3):
+            f, t = coupled_cavity(16, device=cuda, dtype="float64")
+            coupled_steps(f, t, 2)
+            del f, t
+        f, t = coupled_cavity(16, device=cuda, dtype="float64")
+        assert bool(torch.isfinite(coupled_steps(f, t, 2)).all())
+    finally:
+        gc.set_threshold(*threshold)
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing falls back to the per-step loop."""
+    t = _thermal_chunked(cuda, 4, n=16)
+    step = t._step
+
+    def syncing_step(*args):
+        st, aux = step(*args)
+        float(aux["rnorm"])  # a host read-back
+        return st, aux
+
+    t._step = syncing_step
+    with pytest.raises(RuntimeError):
+        t.advance(8)
+    assert t._runners[("chunk", 4)].graph is None
+    torch.cuda.synchronize()
