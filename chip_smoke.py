@@ -74,8 +74,25 @@ script exits non-zero before the last line):
                 (bench's ``FVM_BENCH_AMG_PREC=bf16``): 10 graph-replayed
                 steps, bf16 ``dia_stencil`` launches per step, and the
                 bf16 kernel against its plain version and its bound at the
-                fine level;
-then the ``kernels`` JSON line and, last, the device JSON line.
+                fine level (and the library's bf16 CSR mv, or its error
+                beside the float32 call at the same shape);
+ 13. newton   - the Newton endgame (``advanceNewton(4)``) from the 32^2
+                float64 bench cavity after 60 SIMPLE outers, cuda against
+                cpu: one program, chunked (25), chunked with the float32
+                inner solve, chunked GMRES(30); entry residuals to 1e-8 in
+                the float64 modes, the same fixed point in the mixed one;
+                the chunk's graph replays bit for bit against the eager
+                chunks under deterministic algorithms; ``advanceCoupled(20)``
+                and 60 Anderson-accelerated SIMPLE outers;
+ 14. converge - ``cases.converge_cavity(1024)``, bench's converge mode:
+                float32 SIMPLE replays to the stall, promotion to float64,
+                the mixed-precision Newton endgame (inner solves as graph
+                replays), thermal; seconds per phase, one line per Newton
+                step, ms per inner iteration, ``dia_stencil`` launches per
+                inner iteration, the idle share of a profiled chunk, peak
+                memory and the time to 1e-6;
+then the ``kernels`` JSON line (with this path's launches in the
+``(converge)`` rows) and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -125,6 +142,46 @@ TPU_KERNEL = "fvm_tpu/ops/pallas_kernels.py:125"
 KERNEL_SOURCE = "fvm_tpu_torch/csrc/dia_stencil.cu"
 KERNEL_SOURCE_BF16 = "fvm_tpu_torch/csrc/dia_stencil_bf16.cu"
 HOST_SOURCE = "fvm_tpu_torch/csrc/hostlib.cpp"
+# the Newton endgame, cuda against cpu: the bench cavity at 32^2 float64
+# after 60 SIMPLE outers (at 64^2 the CPU reference's inner solves take
+# minutes per mode).  The
+# inner solves run to 1e-8 (fixed forcing in the chunked BiCGStab): at
+# looser inner tolerances the history moves with the round-off of each
+# device (tests/test_torch_newton.py).  Each run stops on the model's own
+# tests once the entry residual is at round-off (a tight inner solve from
+# there only spends its cap): the outer loop's absoluteTolerance (one
+# program, checked after a step), newtonTargetResidual (chunked, checked
+# before one)
+NEWTON_N = 32
+NEWTON_SIMPLE = 60
+NEWTON_STEPS = 4
+NEWTON_BASE = {"newtonKrylovTolerance": 1e-8, "newtonKrylovIterations": 300,
+               "newtonTargetResidual": 1e-9}
+NEWTON_MODES = [
+    ("one program", {"residualSync": True, "absoluteTolerance": 1e-6}),
+    ("chunked (25)", {"newtonChunkIterations": 25, "newtonForcing": "fixed"}),
+    # five steps to 1e-11 (test_flow.py:552 runs six): after four, the two
+    # float32 inner paths left the CPU's state at 1e-10 of the first
+    # residual and the velocities 8.8e-10 apart (measured), at the edge of
+    # the 1e-9 the check asks for
+    ("chunked (25), float32 inner solve", {
+        "newtonChunkIterations": 25, "newtonInnerPrecision": "float32",
+        "newtonKrylovTolerance": 1e-3, "newtonKrylovIterations": 1500,
+        "newtonTargetResidual": 1e-11, "steps": 5}),
+    ("chunked (25), GMRES(30)", {
+        "newtonChunkIterations": 25, "newtonInnerSolver": "gmres",
+        "newtonGmresRestart": 30}),
+]
+NEWTON_RTOL = 1e-8
+NEWTON_ATOL = 1e-12  # as tests/test_golden_histories.py: round-off floors
+COUPLED_STEPS = 20
+ANDERSON_STEPS = 60
+# the converge path at 1024^2 in phase 14: the float32 phase and the first
+# two Newton steps (the whole sequence to 1e-6 took 243 s of the card and
+# five Newton steps, measured: scripts/converge_run.py runs it); the run
+# must end below the float32 floor it started the endgame from
+CONVERGE_NEWTON = 2
+CONVERGE_REACH = None
 
 
 def log(phase, msg):
@@ -373,13 +430,20 @@ def csr_copy(offsets, coef, diag):
 
 
 def library_call(mode, csr, x, b):
-    """One PyTorch call computing ``mode`` on the CSR matrix: A x, or
-    b - A x as ``addmv`` with alpha -1."""
+    """One PyTorch call computing ``mode`` on the CSR matrix: A x (``mv``
+    for a vector, ``sparse.mm`` for (n, m)), or b - A x as ``addmv`` with
+    alpha -1."""
     import torch
 
     if mode == "mv":
+        if x.ndim == 1:
+            return lambda: torch.mv(csr, x)
         return lambda: torch.sparse.mm(csr, x)
     return lambda: torch.addmv(b, csr, x, alpha=-1)
+
+
+def library_name(mode, m):
+    return "torch.mv" if mode == "mv" and m == 1 else LIBRARY_CALL[mode]
 
 
 def profile_steps(flow, thermal, step_ms, steps=2, run=None, tag="profile"):
@@ -608,15 +672,27 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
                                      c[2], c[3].get("b")) for c in sets]
                 got = libs[0]()
             except RuntimeError as e:  # a type the library does not take
-                libs, library_note = None, f"{LIBRARY_CALL[mode]} failed: " \
-                    f"{str(e).splitlines()[0][:80]}"
+                libs, library_note = None, f"{library_name(mode, m)} " \
+                    f"failed: {str(e).splitlines()[0][:160]}"
+                if dtype_name == "bfloat16":
+                    # the float32 call at the same shape beside it, labelled
+                    f32 = [library_call(mode, csr_copy(
+                        offsets, c[0].float(), c[1].float()), c[2].float(),
+                        None if c[3].get("b") is None else c[3]["b"].float())
+                        for c in sets]
+                    library_note += (
+                        f"; the float32 {library_name(mode, m)} at the same "
+                        f"shape (float32, not a bf16 call): device "
+                        f"{kb.time_device(f32, TIMING_REPS):.5f} ms")
+                    del f32
+                torch.cuda.empty_cache()
             if libs is not None:
                 want = plain[0]()
                 err = float((got - want).abs().max()) / float(
                     want.abs().max())
                 if not err <= LIBRARY_RTOL[dtype_name]:
                     raise AssertionError(
-                        f"{LIBRARY_CALL[mode]} disagrees with the plain "
+                        f"{library_name(mode, m)} disagrees with the plain "
                         f"{mode}: rel err {err:.3e}")
                 library_ms = kb.time_device(libs, TIMING_REPS)
                 library_eager_ms = time_events(libs, TIMING_REPS)
@@ -633,7 +709,7 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
             f"{nops} flop at 67 TFLOP/s), {100 * bound_ms / ms:.1f}% of "
             f"bound; plain device {plain_ms:.5f} ms; "
             + (f"library: {library_note}" if library_ms is None else
-               f"{LIBRARY_CALL[mode]} CSR device {library_ms:.5f} ms "
+               f"{library_name(mode, m)} CSR device {library_ms:.5f} ms "
                f"(eager {library_eager_ms:.5f})"))
         if not rows:
             continue
@@ -896,6 +972,252 @@ def bf16_main_phase(device, n_fine, offsets, errors):
                       launches, errors, "bfloat16")
 
 
+# ---- 13. the Newton endgame, cuda against cpu -------------------------------
+
+def newton_entry():
+    """The CPU bench cavity at NEWTON_N^2 float64 after NEWTON_SIMPLE SIMPLE
+    outers: (host snapshot of the flow state, the first outer's momentum
+    residual)."""
+    from fvm_tpu_torch.cases import coupled_cavity
+    from fvm_tpu_torch.models.fmg import snapshot_state
+
+    flow, _ = coupled_cavity(NEWTON_N, device="cpu", dtype="float64")
+    hist = flow.advance(NEWTON_SIMPLE)
+    return snapshot_state(flow), float(hist[0][1])
+
+
+def newton_model(snap, device, graphed=True, **opts):
+    """A NEWTON_N^2 float64 bench cavity flow on ``device`` at the entry
+    state, with the Newton options of ``NEWTON_BASE`` and ``opts``."""
+    from fvm_tpu_torch.cases import coupled_cavity
+    from fvm_tpu_torch.models.fmg import restore_state
+
+    flow, _ = coupled_cavity(NEWTON_N, device=device, dtype="float64")
+    restore_state(flow, snap)
+    flow.options.update(NEWTON_BASE)
+    flow.options.update(opts)
+    flow._newton_graphed = graphed
+    return flow
+
+
+def newton_run(snap, device, graphed=True, steps=NEWTON_STEPS, **opts):
+    """advanceNewton(steps) from the entry state: (entry residual history,
+    the flow model)."""
+    import torch
+
+    flow = newton_model(snap, device, graphed, **opts)
+    hist = [[float(v) for v in h[1:]] for h in flow.advanceNewton(steps)]
+    if flow.mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    return hist, flow
+
+
+def close(a, b, rtol, atol):
+    """Entry by entry |a - b| <= atol + rtol |b|."""
+    return len(a) == len(b) and all(
+        abs(x - y) <= atol + rtol * abs(y)
+        for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def newton_phase(device):
+    """advanceNewton(NEWTON_STEPS) in each mode on the card and on the CPU
+    from one entry state; the chunk's graph replay against the eager
+    chunk; advanceCoupled and Anderson-accelerated SIMPLE."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_cavity
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    t0 = time.time()
+    snap, n0 = newton_entry()
+    log("newton", f"entry: the {NEWTON_N}^2 float64 bench cavity after "
+        f"{NEWTON_SIMPLE} SIMPLE outers on the cpu (first residual "
+        f"{n0:.6e}) in {time.time() - t0:.1f} s")
+    for label, opts in NEWTON_MODES:
+        t0 = time.time()
+        opts = dict(opts)
+        steps = opts.pop("steps", NEWTON_STEPS)
+        dk.reset_launches()
+        h_gpu, f_gpu = newton_run(snap, device, steps=steps, **opts)
+        t_gpu = time.time() - t0
+        launches = dk.type_launches(torch.float32 if opts.get(
+            "newtonInnerPrecision") else torch.float64)
+        h_cpu, f_cpu = newton_run(snap, "cpu", steps=steps, **opts)
+        trace = [(t["inner_its"], f"{t['inner_rel']:.2e}")
+                 for t in getattr(f_gpu, "_newton_trace", [])]
+        after = [float(f.advance(1)[0][1]) / n0 for f in (f_gpu, f_cpu)]
+        V = [f.getVelocity() for f in (f_gpu, f_cpu)]
+        dv = float(abs(V[0] - V[1]).max() / abs(V[1]).max())
+        mixed = bool(opts.get("newtonInnerPrecision"))
+        log("newton", f"{label}: entry residuals cuda "
+            + ", ".join(f"{h[0]:.6e}" for h in h_gpu) + " / cpu "
+            + ", ".join(f"{h[0]:.6e}" for h in h_cpu)
+            + f" (advanceNewton({steps})); card inner its/rel {trace}; one "
+            f"SIMPLE step after: "
+            f"{after[0]:.3e} / {after[1]:.3e} of the first residual; "
+            f"velocities {dv:.3e} apart; card dia_stencil launches "
+            + ", ".join(f"{m} {v}" for m, v in launches.items())
+            + f"; card {t_gpu:.1f} s, {time.time() - t0:.1f} s in all")
+        if mixed:
+            ok = max(after) < 1e-8 and dv < 1e-9
+        else:
+            ok = close(h_gpu, h_cpu, NEWTON_RTOL, NEWTON_ATOL)
+        if not ok:
+            raise AssertionError(f"newton: {label}: cuda and cpu disagree")
+        if device.type == "cuda" and not sum(launches.values()):
+            raise AssertionError(f"newton: {label}: dia_stencil never "
+                                 f"launched on the card")
+        del f_gpu, f_cpu
+        gc.collect()
+
+    # a chunk's graph replay against the same chunks run eagerly
+    label, opts = NEWTON_MODES[1]
+    with deterministic():
+        runs = [newton_run(snap, device, graphed, steps=2, **opts)
+                for graphed in (True, False)]
+    (h_g, f_g), (h_e, f_e) = runs
+    inner = f_g._runners[("newton", opts["newtonChunkIterations"])]
+    same = h_g == h_e and all(torch.equal(f_g.state[k], f_e.state[k])
+                              for k in f_g.state)
+    log("newton", f"{label}, 2 steps under deterministic algorithms: graph "
+        f"replays ({inner.trips_per_replay} iterations per replay, "
+        f"{inner.replays} replays) "
+        f"{'bit-identical to' if same else 'DIFFER from'}"
+        f" the eager chunks: {h_g} vs {h_e}")
+    if not same:
+        raise AssertionError("newton: the chunk's replay differs from the "
+                             "eager chunk")
+    del runs, f_g, f_e, inner
+    gc.collect()
+
+    # advanceCoupled and Anderson-accelerated SIMPLE
+    for label, run in (
+            (f"advanceCoupled({COUPLED_STEPS})",
+             lambda f: f.advanceCoupled(COUPLED_STEPS)),
+            (f"Anderson-accelerated SIMPLE, {ANDERSON_STEPS} outers",
+             lambda f: f.advance(ANDERSON_STEPS))):
+        t0 = time.time()
+        hs = []
+        for dev in (device, "cpu"):
+            flow, _ = coupled_cavity(NEWTON_N, device=dev, dtype="float64")
+            if "Anderson" in label:
+                flow.options["acceleration"] = "anderson"
+            hs.append([[float(v) for v in h[1:]] for h in run(flow)])
+        worst = max_rel(*hs)
+        log("newton", f"{label} at {NEWTON_N}^2 float64: cuda {hs[0][-1]} vs "
+            f"cpu {hs[1][-1]}; max rel diff {worst:.3e} (tol {SLICE_RTOL:g})"
+            f" in {time.time() - t0:.1f} s")
+        if len(hs[0]) != len(hs[1]) or not worst <= SLICE_RTOL:
+            raise AssertionError(f"newton: {label}: cuda and cpu disagree")
+
+
+# ---- 14. time to a converged residual at 1024^2 ----------------------------
+
+def converge_phase(device, kernels, result=None):
+    """``cases.converge_cavity(MAIN_N)`` on the card with at most
+    ``CONVERGE_NEWTON`` Newton steps: bench's converge mode (float32 SIMPLE
+    to the stall, promotion, the mixed-precision Newton endgame, 20 float64
+    thermal steps), counters reset just before it; it must reach
+    ``CONVERGE_REACH`` (None: below the float32 floor it promoted at).
+    Returns the ``kernels`` rows of the modes it
+    launched, the timing numbers taken from ``kernels`` (phase 6's
+    measurements at the same shapes); ``result`` (a dict) receives
+    converge_cavity's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fvm_tpu_torch.cases import NEWTON_CHUNK, converge_cavity
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dk.reset_launches()
+    models = {}
+    t0 = time.time()
+    res = converge_cavity(MAIN_N, device=device, newton_steps=CONVERGE_NEWTON,
+                          models=models,
+                          log=lambda msg: log("converge", msg))
+    wall = time.time() - t0
+    if result is not None:
+        result.update(res)
+    launches = {t: dk.type_launches(t) for t in (torch.float32,
+                                                  torch.float64)}
+    by_shape = dict(dk.dia_stencil.shapes)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ph = res["phases"]
+    flow = models["flow"]
+    inner = flow._runners[("newton", NEWTON_CHUNK)]
+    its = sum(t["inner_its"] for t in ph["newton"])
+    newton_s = sum(t["s"] for t in ph["newton"])
+    log("converge", f"phases: f32 {ph['f32_steps']} outers in "
+        f"{ph['f32_s']:.3f} s (floor rel {ph.get('f32_floor_rel', 0):.3e}), "
+        f"polish set-up {ph['polish_setup_s']:.3f} s, Newton "
+        f"{len(ph['newton'])} steps in {newton_s:.3f} s, {its} inner "
+        f"iterations; {wall:.1f} s in all with the prefix")
+    for k, t in enumerate(ph["newton"]):
+        log("converge", f"newton {k}: entry rel {t['entry_rel']:.6e}, eta "
+            f"{t['eta']:.3e}, inner its {t['inner_its']}, inner rel "
+            f"{t['inner_rel']:.3e}, {t['s']:.3f} s")
+    if its:
+        log("converge", f"inner iterations: {1e3 * newton_s / its:.3f} ms "
+            f"each (Newton seconds over inner iterations), "
+            f"{its / newton_s:.2f} per second")
+    cap = inner.trips.captured
+    per = inner.trips_per_replay
+    log("converge", f"dia_stencil launches per inner iteration (the trips "
+        f"graph, {per} iterations per replay): {sum(cap[0].values()) / per:g}"
+        " by (type, variant, mode, rows): " + ", ".join(
+            f"{k[0]}/{k[1]}/{k[2]}/{k[3]} {v / per:g}"
+            for k, v in sorted(cap[1].items())))
+    log("converge", "dia_stencil launches in the converge run: " + "; ".join(
+        f"{dk.type_tag(t)} " + ", ".join(f"{m} {v}" for m, v in d.items())
+        for t, d in launches.items()))
+    # the device idle share of one chunk replay, profiled
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    inner.run_chunk(0.1)
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        inner.run_chunk(0.1)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 reverse=True)[:8]
+    idle = (f"{busy:.3f} ms in a profiled one "
+            f"({100 - 100 * busy / chunk_ms:.1f}% idle; the profiler's own "
+            f"cost can make this negative)" if busy else
+            "not measured (no device events)")
+    log("converge", f"one chunk ({inner.chunk} iterations, "
+        f"{inner.n_replays} replays): {chunk_ms:.3f} ms unprofiled, device "
+        f"busy {idle}")
+    for ms, n, key in top:
+        log("converge", f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
+    log("converge", f"peak device memory {peak:.3f} GiB")
+    line = json.dumps({k: v for k, v in res.items() if k != "phases"})
+    log("converge", f"time_to_rel_residual: {line}")
+    V = flow.state["velocity"]
+    reach = CONVERGE_REACH or ph.get("f32_floor_rel", 0.0)
+    if not (res["reached_rel"] < reach and bool(torch.isfinite(V).all())):
+        raise AssertionError(f"converge: reached {res['reached_rel']:.3e}, "
+                             f"not below {reach:.3e}")
+    if not its or not sum(launches[torch.float32].values()):
+        raise AssertionError("converge: no inner iterations / no launches")
+    del flow, inner, models
+    gc.collect()
+    rows = []
+    for t, tag in ((torch.float32, ""), (torch.float64, " (f64)")):
+        for mode, n in launches[t].items():
+            src = next((r for r in kernels
+                        if r["name"] == f"dia_stencil.{mode}{tag}"), None)
+            if n and src is not None:
+                rows.append(dict(src, name=f"dia_stencil.{mode}{tag} "
+                                 "(converge)", launches=n))
+    return rows
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -1114,6 +1436,12 @@ def main() -> int:
     # ---- 12. the cavity path's options -------------------------------------
     options_phase(device)
     kernels += bf16_main_phase(device, n_main, main_offsets, errors)
+
+    # ---- 13. the Newton endgame, cuda against cpu ---------------------------
+    newton_phase(device)
+
+    # ---- 14. time to a converged residual at 1024^2 -------------------------
+    kernels += converge_phase(device, kernels)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -143,3 +143,163 @@ def _coupled_fn(fmodel, tmodel, trips):
         return {"flow": fs, "thermal": ts}, torch.stack(res)
 
     return run
+
+
+# bench.py's converge settings (FVM_BENCH_CONVERGE_TOL, _MAX, _POLISH_AT,
+# _NEWTON_KTOL, _KIT, _CHUNK64 and _PREC defaults; its iters and check)
+TARGET_REL = 1e-6
+MAX_STEPS = 4000
+POLISH_AT = 5e-3
+NEWTON_KTOL = 1e-3
+NEWTON_KIT = 4000
+NEWTON_CHUNK = 240
+INNER_PRECISION = "float32"
+ITERS, CHECK = 10, 50
+
+
+def converge_cavity(n: int, device=None, polish: str = "newton",
+                    newton_steps: int = 10, models=None, log=None) -> dict:
+    """Wall time to a TARGET_REL (1e-6) relative momentum residual on the
+    n x n coupled cavity: the counterpart of ``bench.py``'s converge mode
+    (``bench.py:222-643`` with ``FVM_BENCH_CONVERGE=1``,
+    ``FVM_BENCH_POLISH=float64``, no FMG).
+
+    * Start: the float32 ``cavity_models``; norm0 is the momentum residual
+      of the classic prefix (2 warm-up and ITERS coupled steps), then one
+      ``coupled_steps(ITERS)`` program is built and run (a graph capture on
+      a CUDA mesh), outside the timed part.
+    * f32 phase: ``coupled_steps(ITERS)`` replays, the residual read every
+      CHECK outers; promotion when rel < POLISH_AT and the last CHECK
+      outers took off less than 10%; at most MAX_STEPS.
+    * ``polish="newton"``: snapshot the state to the host, drop the f32
+      models (their graphs with them), build the float64 pair, restore,
+      and run ``advanceNewton(newton_steps)`` with bench's settings (inner
+      tolerance 1e-3, 4000 inner iterations, float32 inner views,
+      BiCGStab in chunks of 240, Eisenstat-Walker forcing, refreeze,
+      target TARGET_REL * norm0), then 20 thermal steps.
+    * ``polish="anderson"``: promote onto a float64 pair with bench's
+      polish solvers (pressure AMG to 1e-6 in 20 cycles, momentum BiCGStab
+      to 1e-4 in 30) and Anderson mixing (depth 12, every 5th step after
+      5), run per coupled step for up to 2000 more outers with the same
+      stall test.
+
+    Returns bench's artifact dict (``bench.py:627-639``): ``metric``,
+    ``target_rel``, ``reached_rel``, ``converged``, ``n_cells``,
+    ``value`` (seconds), ``unit``, ``outer_steps`` and ``phases`` (the f32
+    steps and seconds, the polish set-up seconds, and per Newton step
+    ``entry_rel``, ``eta``, ``inner_its``, ``inner_rel``, ``s``).  When
+    ``models`` is a dict, the final (flow, thermal) are stored in it under
+    "flow" and "thermal"."""
+    import time
+
+    from .models.fmg import promote_state, restore_state, snapshot_state
+
+    say = log or (lambda msg: None)
+    mesh = quad_2d(n, n)
+    flow, thermal = cavity_models(build_device_mesh(mesh, dtype="float32",
+                                                    device=device))
+    dev = flow.mesh.device
+
+    def last_mom(res):
+        return float(res[-1][0] if isinstance(res, torch.Tensor) else res)
+
+    for _ in range(2):  # bench's warm-up steps
+        float(coupled_step(flow, thermal)[0])
+    for _ in range(ITERS):
+        hist = coupled_step(flow, thermal)
+    norm0 = float(hist[0])
+    coupled_steps(flow, thermal, ITERS)  # build (capture) the f32 program
+
+    t0 = time.time()
+    steps, rel, prev_rel = 0, 1.0, None
+    phases = {"fmg_s": 0.0, "f32_steps": 0, "f32_s": 0.0,
+              "polish_setup_s": 0.0, "newton": []}
+    fused = True
+    max_steps = MAX_STEPS
+    while steps < max_steps:
+        if fused:
+            for _ in range(CHECK // ITERS):
+                res = coupled_steps(flow, thermal, ITERS)
+            rel = last_mom(res) / norm0
+        else:
+            for _ in range(CHECK):
+                res = coupled_step(flow, thermal)
+            rel = float(res[0]) / norm0
+        steps += CHECK
+        say(f"converge: step {steps} mom rel {rel:.3e}")
+        if rel < TARGET_REL:
+            break
+        stalled = prev_rel is not None and rel > 0.9 * prev_rel
+        prev_rel = rel
+        if not (polish and rel < POLISH_AT and stalled):
+            continue
+        say(f"polish: f32 floor at rel {rel:.3e} after {steps} steps")
+        t_p = time.time()
+        phases.update(f32_steps=steps, f32_s=t_p - t0, f32_floor_rel=rel)
+        if polish == "newton":
+            snaps = snapshot_state(flow), snapshot_state(thermal)
+            # the f32 models and their graphs go before the f64 pair
+            # captures anything
+            flow = thermal = res = None
+            flow, thermal = cavity_models(build_device_mesh(
+                mesh, dtype="float64", device=dev))
+            o = flow.options
+            o["newtonKrylovTolerance"] = NEWTON_KTOL
+            o["newtonKrylovIterations"] = NEWTON_KIT
+            o["newtonInnerPrecision"] = INNER_PRECISION
+            o["newtonInnerSolver"] = "bicgstab"
+            o["newtonChunkIterations"] = NEWTON_CHUNK
+            o["newtonRefreeze"] = True
+            o["newtonTargetResidual"] = TARGET_REL * norm0
+            restore_state(flow, snaps[0])
+            restore_state(thermal, snaps[1])
+            phases["polish_setup_s"] = time.time() - t_p
+            hn = flow.advanceNewton(newton_steps)
+            rel = float(hn[-1][1]) / norm0
+            steps += len(flow._newton_trace)
+            for k, tr in enumerate(flow._newton_trace):
+                tr = dict(tr, entry_rel=tr["entry_mom"] / norm0)
+                phases["newton"].append(tr)
+                say(f"newton {k}: entry mom rel {tr['entry_rel']:.3e} eta "
+                    f"{tr['eta']:.1e} inner {tr['inner_its']} its to "
+                    f"{tr['inner_rel']:.1e} ({tr['s']:.1f}s)")
+            thermal.state["massFlux"] = flow.state["massFlux"]
+            thermal.advance(20)
+            float(thermal.state["T"].sum())  # completes the queue
+            break
+        if polish != "anderson":
+            raise ValueError(f"converge_cavity: polish {polish!r} "
+                             "(newton | anderson | '')")
+        flow64, thermal64 = cavity_models(build_device_mesh(
+            mesh, dtype="float64", device=dev))
+        flow64.options["pressureLinearSolver"] = AMG(
+            coarse_size=256, relative_tolerance=1e-6, max_iterations=20)
+        flow64.options["momentumLinearSolver"] = BiCGStab(
+            relative_tolerance=1e-4, max_iterations=30)
+        flow64.options.update(acceleration="anderson", andersonInterval=5,
+                              andersonDepth=12, andersonDelay=5)
+        flow64.init()
+        flow64.options["residualSync"] = False
+        promote_state(flow, flow64)
+        promote_state(thermal, thermal64)
+        flow, thermal = flow64, thermal64
+        flow64 = thermal64 = res = None
+        phases["polish_setup_s"] = time.time() - t_p
+        polish, prev_rel, fused = "", None, False
+        max_steps = steps + 2000
+    value = time.time() - t0
+    say(f"time-to-{TARGET_REL:g}: {value:.1f}s ({steps} outer steps, rel "
+        f"{rel:.3e})")
+    if models is not None:
+        models.update(flow=flow, thermal=thermal)
+    return {
+        "metric": "time_to_rel_residual",
+        "target_rel": TARGET_REL,
+        "reached_rel": rel,
+        "converged": rel < TARGET_REL,
+        "n_cells": n * n,
+        "value": value,
+        "unit": "s",
+        "outer_steps": steps,
+        "phases": phases,
+    }

@@ -38,7 +38,10 @@ def _load(kind: str, have: dict, given: dict, dtype, device) -> dict:
 def load_model_state(model, state: dict, params: dict | None = None) -> None:
     """Replace ``model.state`` (and ``model.params`` when given) with host
     arrays converted to the model's device and dtype.  Call after
-    ``model.init()``."""
+    ``model.init()``.  A JAX package model's
+    ``fvm_tpu.models.fmg.snapshot_state`` (``momAp`` and ``massFlux``
+    included) has the same keys as the port model's state and loads as
+    it is."""
     if not getattr(model, "_initialized", False):
         raise RuntimeError("load_model_state: call model.init() first")
     mesh = model.mesh

@@ -1,3 +1,5 @@
 from .base import LinearSolver, SolveStats, norm
 from .krylov import CG, GMRES, BiCGStab, JacobiSolver
 from .amg import AMG, DirectSolver
+from .coupled import CoupledSIMPLE
+from .anderson import Anderson

@@ -62,10 +62,12 @@ def prepared(A):
 
 
 def condensed(A, b):
-    """Boundary-row condensation at solve entry.
+    """Boundary-row condensation at solve entry (a no-op for operators).
 
     Returns (A', b', recover); solvers apply recover to the solution."""
-    return A.condense(b)
+    if hasattr(A, "condense"):
+        return A.condense(b)
+    return A, b, (lambda x: x)
 
 
 class LinearSolver:
@@ -96,3 +98,48 @@ class LinearSolver:
                 f"r0={float(stats.residual0):.3e} r={float(stats.residual):.3e}"
             )
         return x, stats
+
+
+class MatrixFreeOperator:
+    """The exact Jacobian as an operator, with a surrogate matrix for the
+    reductions and the diagonal (``fvm_tpu/linear/base.py:103-135``).
+
+    ``mv_fn`` applies the operator (``newton_operator``: forward-mode AD of
+    a residual function); ``surrogate`` is an assembled ELL/BlockELL
+    approximation used for ``dot``, ``norm`` and ``diag_solve`` and to
+    build the preconditioner."""
+
+    def __init__(self, mv_fn, surrogate):
+        self._mv = mv_fn
+        self.surrogate = surrogate
+
+    def prepare(self):
+        return self
+
+    def mv(self, x):
+        return self._mv(x)
+
+    def residual(self, x, b):
+        return b - self._mv(x)
+
+    def dot(self, a, b):
+        return self.surrogate.dot(a, b)
+
+    def norm(self, x):
+        return self.surrogate.norm(x)
+
+    def diag_solve(self, r):
+        return self.surrogate.diag_solve(r)
+
+    def jacobi_step(self, x, b, omega=1.0):
+        return x + omega * self.diag_solve(b - self.mv(x))
+
+
+def newton_operator(residual_fn, x):
+    """A v = -dR/dx|_x . v by one forward-mode AD product
+    (``torch.func.jvp``) per application, linearised at x."""
+
+    def mv(v):
+        return -torch.func.jvp(residual_fn, (x,), (v,))[1]
+
+    return mv

@@ -6,13 +6,17 @@ JacobiSolver (JacobiSolver.h:20), and of the JAX package's restarted
 GMRES.  A preconditioner is itself a LinearSolver exposing
 ``precond_setup(A) -> (r -> z)``.  Loops are the fixed-trip frozen form
 described in ``linear/base.py``: no ``.item()`` inside, so a CUDA graph
-can capture a solve.  The chunked ``init_carry``/``solve_chunk``
-protocol is not ported yet.
+can capture a solve.
+
+BiCGStab and GMRES also offer the JAX package's chunked protocol:
+``init_carry(A, b, x0)`` and ``solve_chunk(A, carry, target)`` run a solve
+in pieces of ``max_iterations`` iterations that continue one iteration
+exactly (the whole Krylov state rides the carry; iterations count
+globally), and ``solve_fn`` is ``init_carry`` plus one ``solve_chunk``, so
+the two cannot drift apart.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -46,13 +50,38 @@ def _stall_tol(dtype):
     return 1e-8 if dtype == torch.float64 else 1e-4
 
 
+def _all_frozen(solver, trip, active) -> bool:
+    """Whether an eager solve may stop: every ``exit_every`` trips (0: never)
+    one read-back of the trip's activity, outside a graph capture.  A trip
+    that is frozen leaves every later one frozen, so stopping there returns
+    the frozen form's result."""
+    every = getattr(solver, "exit_every", 0)
+    if not every or trip == 0 or trip % every:
+        return False
+    if active.is_cuda and torch.cuda.is_current_stream_capturing():
+        return False
+    return not bool(active)
+
+
+def _tiny(dt, dev):
+    """The breakdown guard of the recurrence scalars, as a device scalar."""
+    return torch.full((), 1e-300 if dt == torch.float64 else 1e-30,
+                      dtype=dt, device=dev)
+
+
 class BiCGStab(LinearSolver):
     """Preconditioned BiCGStab (general nonsymmetric systems).
 
     Multi-RHS vectors (n, m) run ONE block recurrence: ``A.dot`` sums over
     all (n, m) entries, so the components share alpha, beta and omega, as
-    in the JAX package.  The best iterate seen is returned, and the
-    iteration stops (freezes) on clear divergence."""
+    in the JAX package.  The best iterate seen is kept, and the iteration
+    stops (freezes) on clear divergence.
+
+    The carry is the JAX package's 13-tuple
+    ``(i, x, r, p, v, rho, alpha, omega, rn, bx, brn, rhat, rnorm0)``;
+    |rhat|, which the stall test needs, is recomputed from rhat at the
+    start of each chunk (it is |r| at the last restart of the shadow, the
+    same number)."""
 
     def __init__(self, preconditioner: LinearSolver | None = None,
                  stall_restart: bool = False, **kw):
@@ -60,41 +89,43 @@ class BiCGStab(LinearSolver):
         self.preconditioner = preconditioner
         self.stall_restart = stall_restart
 
-    def solve_fn(self, A, b, x0, target=None):
-        """``target``: optional ABSOLUTE residual-norm target overriding
-        max(rtol*|b - A x0|, atol)."""
-        A, b, recover = condensed(A, b)
-        A = prepared(A)
-        M = _setup_precond(self.preconditioner, A)
-        rtol, atol, maxit = (
-            self.relativeTolerance,
-            self.absoluteTolerance,
-            self.nMaxIterations,
-        )
-        dev, dt = b.device, b.dtype
-        # scalars made on the device (a fill, no host copy: a CUDA graph
-        # can capture the solve)
-        tiny = torch.full((), 1e-300 if dt == torch.float64 else 1e-30,
-                          dtype=dt, device=dev)
+    # --- carry protocol ---------------------------------------------------
 
+    def carry_template(self, vec_shape, dtype, device):
+        """Zeros with the carry's structure (a placeholder before the first
+        chunk)."""
+        z = torch.zeros(vec_shape, dtype=dtype, device=device)
+        s = torch.zeros((), dtype=dtype, device=device)
+        i = torch.zeros((), dtype=torch.int64, device=device)
+        return (i, z, z, z, z, s, s, s, s, z, s, z, s)
+
+    def init_carry(self, A, b, x0):
+        """The carry of a solve from x0 (``fvm_tpu`` ``init_carry``)."""
+        A = prepared(A)
         r0 = A.residual(x0, b)
         rnorm0 = A.norm(r0)
-        target = _target(target, rtol, atol, rnorm0)
-        # divergence guard in one unit (the residual norm): stop and return
-        # the best iterate once rn leaves 1e8 * (|r0| + atol)
-        limit = 1e8 * (rnorm0 + atol)
-        stol = _stall_tol(dt) if self.stall_restart else 0.0
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        i = torch.zeros((), dtype=torch.int64, device=b.device)
+        return (i, x0, r0, torch.zeros_like(b), torch.zeros_like(b),
+                one, one, one, rnorm0, x0, rnorm0, r0, rnorm0)
 
-        one = torch.ones((), dtype=dt, device=dev)
-        i = torch.zeros((), dtype=torch.int64, device=dev)
-        x, r = x0, r0
-        p = torch.zeros_like(b)
-        v = torch.zeros_like(b)
-        rho = alpha = omega = one
-        rn = bnorm = rhn = rnorm0
-        bx, rhat = x0, r0
-        for _ in range(maxit):
+    def _iterate(self, A, M, carry, target, trips):
+        """``trips`` frozen BiCGStab trips from ``carry``; returns the
+        carry after them.  A trip is active while the residual norm is
+        above ``target``, finite and below 1e8 (|r0| + atol)."""
+        (i, x, r, p, v, rho, alpha, omega, rn, bx, brn, rhat,
+         rnorm0) = carry
+        dt, dev = x.dtype, x.device
+        # scalars made on the device (a fill, no host copy: a CUDA graph
+        # can capture the solve)
+        tiny = _tiny(dt, dev)
+        limit = 1e8 * (rnorm0 + self.absoluteTolerance)
+        stol = _stall_tol(dt) if self.stall_restart else 0.0
+        rhn = A.norm(rhat)
+        for trip in range(trips):
             active = (rn > target) & torch.isfinite(rn) & (rn < limit)
+            if _all_frozen(self, trip, active):
+                break
 
             rho_raw = A.dot(rhat, r)
             stall = rho_raw.abs() < stol * rhn * rn
@@ -117,11 +148,11 @@ class BiCGStab(LinearSolver):
             x_n = x + alpha_n * phat + omega_n * shat
             r_n = s - omega_n * t
             rn_n = A.norm(r_n)
-            better = torch.isfinite(rn_n) & (rn_n < bnorm)
+            better = torch.isfinite(rn_n) & (rn_n < brn)
 
             i = i + active.to(i.dtype)
             bx = torch.where(active & better, x_n, bx)
-            bnorm = torch.where(active & better, rn_n, bnorm)
+            brn = torch.where(active & better, rn_n, brn)
             x, r, p, v, rhat = (
                 torch.where(active, a, c) for a, c in
                 ((x_n, x), (r_n, r), (p_n, p), (v_n, v), (rhat_n, rhat)))
@@ -129,7 +160,41 @@ class BiCGStab(LinearSolver):
                 torch.where(active, a, c) for a, c in
                 ((rho_n, rho), (alpha_n, alpha), (omega_n, omega), (rn_n, rn),
                  (rhn_n, rhn)))
-        return recover(bx), SolveStats(i, rnorm0, bnorm, bnorm <= target)
+        return (i, x, r, p, v, rho, alpha, omega, rn, bx, brn, rhat, rnorm0)
+
+    def solve_chunk(self, A, carry, target, trips=None):
+        """Up to ``max_iterations`` MORE iterations (or ``trips``) from a
+        carry toward the ABSOLUTE residual ``target``
+        (``fvm_tpu/linear/krylov.py:133-220``).  Returns (x, stats,
+        carry_out): x is the last iterate, or the best one seen when the
+        last left 100 (|r0| + atol); stats.iterations counts globally.
+        Operators without boundary condensation only."""
+        A = prepared(A)
+        M = _setup_precond(self.preconditioner, A)
+        rnorm0 = carry[-1]
+        target = _target(target, 0.0, 0.0, rnorm0)
+        out = self._iterate(A, M, carry, target,
+                            self.nMaxIterations if trips is None else trips)
+        i, x, rn, bx, brn = out[0], out[1], out[8], out[9], out[10]
+        ok_last = torch.isfinite(rn) & (rn < 100.0 * (
+            rnorm0 + self.absoluteTolerance))
+        x_out = torch.where(ok_last, x, bx)
+        rn_out = torch.where(ok_last, rn, brn)
+        return x_out, SolveStats(i, rnorm0, rn_out, rn_out <= target), out
+
+    def solve_fn(self, A, b, x0, target=None):
+        """``target``: optional ABSOLUTE residual-norm target overriding
+        max(rtol*|b - A x0|, atol).  Returns the best iterate."""
+        A, b, recover = condensed(A, b)
+        A = prepared(A)
+        M = _setup_precond(self.preconditioner, A)
+        carry = self.init_carry(A, b, x0)
+        rnorm0 = carry[-1]
+        target = _target(target, self.relativeTolerance,
+                         self.absoluteTolerance, rnorm0)
+        out = self._iterate(A, M, carry, target, self.nMaxIterations)
+        i, bx, brn = out[0], out[9], out[10]
+        return recover(bx), SolveStats(i, rnorm0, brn, brn <= target)
 
 
 class CG(LinearSolver):
@@ -175,19 +240,28 @@ class CG(LinearSolver):
 
 class GMRES(LinearSolver):
     """Right-preconditioned restarted GMRES(m), the JAX package's
-    ``GMRES.solve_fn`` (fvm_tpu/linear/krylov.py:331-505): Arnoldi with
-    classical Gram-Schmidt applied twice, Givens rotations, the least
-    squares problem solved by back-substitution
-    (``torch.linalg.solve_triangular``), the best iterate kept and the
-    solve stopped on divergence.
+    ``GMRES`` (fvm_tpu/linear/krylov.py:331-505): Arnoldi with classical
+    Gram-Schmidt applied twice, Givens rotations, the least-squares problem
+    solved by back-substitution (``torch.linalg.solve_triangular``), the
+    best iterate kept and the solve stopped on divergence.  The carry is
+    the JAX package's ``(i, x, b, rn, bx, brn, rnorm0)``.
 
-    The frozen form runs ceil(max_iterations / restart) cycles of
-    ``restart`` Arnoldi trips each.  The JAX loop may start one more
-    cycle after a cycle whose Givens estimate met the target while the
-    recomputed residual did not; here no cycle beyond that count runs.
-    The rotations are kept as one (m + 1)-square orthogonal matrix, so a
-    new Hessenberg column is rotated by one small product instead of a
-    chain of m sequential updates (the same rotations, another rounding).
+    ``solve_chunk`` is the JAX package's restart loop in the frozen form.
+    A cycle starts while i < i0 + max_iterations and the recomputed
+    residual |b - A x| is above the target; inside it only ``restart`` and
+    the Givens estimate bound the Arnoldi steps, so a cycle may end early
+    on its estimate with the true residual still above the target, and
+    then another one starts.  The frozen loop is flat: max_iterations - 1
+    + restart trips (the most Arnoldi steps such a restart loop can take),
+    each one Arnoldi step of the open cycle followed by that cycle's close
+    (back-substitution, update, recomputed residual, best iterate and the
+    decision to open the next cycle), kept only where the cycle ends.  A
+    trip therefore costs two preconditioner applications, two products
+    with A and five passes over the (restart + 1)-vector basis, about
+    twice an Arnoldi step.  The rotations so far are kept as one
+    (m + 1)-square orthogonal matrix, so a new Hessenberg column is rotated
+    by one small product instead of a chain of m sequential updates (the
+    same rotations, another rounding).
     """
 
     def __init__(self, preconditioner: LinearSolver | None = None,
@@ -196,98 +270,138 @@ class GMRES(LinearSolver):
         self.preconditioner = preconditioner
         self.restart = int(restart)
 
-    def _cycle(self, A, M, x, b, active0, target):
-        """One GMRES(m) cycle from x, every trip frozen once the cycle
-        ends; returns (x_new, |b - A x_new|, Arnoldi steps taken)."""
-        m = self.restart
-        dt, dev = b.dtype, b.device
+    # --- carry protocol ---------------------------------------------------
+
+    def carry_template(self, vec_shape, dtype, device):
+        """Zeros with the carry's structure."""
+        z = torch.zeros(vec_shape, dtype=dtype, device=device)
+        s = torch.zeros((), dtype=dtype, device=device)
+        i = torch.zeros((), dtype=torch.int64, device=device)
+        return (i, z, z, s, z, s, s)
+
+    def init_carry(self, A, b, x0):
+        A = prepared(A)
+        rn = A.norm(b - A.mv(x0))
+        i = torch.zeros((), dtype=torch.int64, device=b.device)
+        return (i, x0, b, rn, x0, rn, rn)
+
+    def solve_chunk(self, A, carry, target):
+        """Up to ``max_iterations`` MORE iterations (whole restart cycles,
+        the last may run past the count) toward the ABSOLUTE residual
+        ``target``; returns (x, stats, carry_out) as the JAX package's
+        ``solve_chunk`` (fvm_tpu/linear/krylov.py:459-493)."""
+        A = prepared(A)
+        M = _setup_precond(self.preconditioner, A)
+        m, maxit = self.restart, self.nMaxIterations
+        i0, x, b, rn, bx, brn, rnorm0 = carry
+        target = _target(target, 0.0, 0.0, rnorm0)
+        dt, dev = x.dtype, x.device
         tiny = torch.finfo(dt).tiny
+        limit = 1e8 * (rnorm0 + self.absoluteTolerance)
+        k = torch.arange(m + 1, device=dev)
+        col = torch.arange(m, device=dev)
+        live_idx = torch.arange(m, device=dev)
+        eye1 = torch.eye(m + 1, dtype=dt, device=dev)
+        eye = torch.eye(m, dtype=dt, device=dev)
+
         r = b - A.mv(x)
-        beta = A.norm(r)
-        V = torch.zeros((m + 1,) + tuple(b.shape), dtype=dt, device=dev)
-        V[0] = r / torch.clamp(beta, min=tiny)
+        V = torch.zeros((m + 1,) + tuple(x.shape), dtype=dt, device=dev)
         H = torch.zeros((m + 1, m), dtype=dt, device=dev)
-        # the product of the rotations so far; g = Q (beta e_0)
-        Q = torch.eye(m + 1, dtype=dt, device=dev)
-        g = torch.zeros(m + 1, dtype=dt, device=dev)
-        g[0] = beta
+        Q, g = eye1, torch.zeros(m + 1, dtype=dt, device=dev)
         j = torch.zeros((), dtype=torch.int64, device=dev)
-        res = beta
-        for jj in range(m):
-            active = active0 & (res > target) & torch.isfinite(res)
-            w = A.mv(M(V[jj]))
-            Vb = V[: jj + 1]
-            h1 = torch.einsum("k...,...->k", Vb, w)
-            w = w - torch.einsum("k,k...->...", h1, Vb)
-            h2 = torch.einsum("k...,...->k", Vb, w)
-            w = w - torch.einsum("k,k...->...", h2, Vb)
+        res = torch.zeros((), dtype=dt, device=dev)
+        is_open = torch.zeros((), dtype=torch.bool, device=dev)
+        i = i0
+        for trip in range(maxit - 1 + m):
+            # open a cycle where none is open (the restart loop's test)
+            start = (~is_open & (i < i0 + maxit) & (rn > target)
+                     & torch.isfinite(rn) & (rn < limit))
+            if _all_frozen(self, trip, is_open | start):
+                break
+            beta = A.norm(r)
+            V[0] = torch.where(start, r / torch.clamp(beta, min=tiny), V[0])
+            H = torch.where(start, 0.0, H)
+            Q = torch.where(start, eye1, Q)
+            g = torch.where(start, torch.where(k == 0, beta, 0.0), g)
+            j = torch.where(start, 0, j)
+            res = torch.where(start, beta, res)
+            is_open = is_open | start
+
+            # one Arnoldi step of the open cycle
+            step = is_open & (j < m) & (res > target) & torch.isfinite(res)
+            w = A.mv(M(V.index_select(0, j.reshape(1))[0]))
+            le = (k <= j).to(dt)
+            h1 = torch.einsum("k...,...->k", V, w) * le
+            w = w - torch.einsum("k,k...->...", h1, V)
+            h2 = torch.einsum("k...,...->k", V, w) * le
+            w = w - torch.einsum("k,k...->...", h2, V)
             hw = A.norm(w)
-            h = torch.cat([h1 + h2, hw[None],
-                           torch.zeros(m - jj - 1, dtype=dt, device=dev)])
-            h = Q @ h  # the earlier rotations
-            hj, hj1 = h[jj], h[jj + 1]
+            h = Q @ (h1 + h2 + torch.where(k == j + 1, hw, 0.0))
+            hj = h.gather(0, j.reshape(1))[0]
+            hj1 = h.gather(0, (j + 1).clamp(max=m).reshape(1))[0]
             den = torch.sqrt(hj * hj + hj1 * hj1)
             ok = den > tiny
             c = torch.where(ok, hj / torch.clamp(den, min=tiny), 1.0)
             s = torch.where(ok, hj1 / torch.clamp(den, min=tiny), 0.0)
-            h = torch.cat([h[:jj], (c * hj + s * hj1)[None],
-                           torch.zeros(m - jj, dtype=dt, device=dev)])
-            qj, qj1 = Q[jj], Q[jj + 1]
-            Q_n = Q.clone()
-            Q_n[jj] = c * qj + s * qj1
-            Q_n[jj + 1] = c * qj1 - s * qj
-            gj = g[jj]
-            g_n = g.clone()
-            g_n[jj] = c * gj
-            g_n[jj + 1] = -s * gj
-            H[:, jj] = torch.where(active, h, H[:, jj])
-            V[jj + 1] = torch.where(active, w / torch.clamp(hw, min=tiny),
-                                    V[jj + 1])
-            Q = torch.where(active, Q_n, Q)
-            g = torch.where(active, g_n, g)
-            res = torch.where(active, torch.abs(g_n[jj + 1]), res)
-            j = j + active.to(j.dtype)
-        # back-substitution on the j-leading block of R = H[:m, :m]; the
-        # rows and columns past j are the identity with a zero right side
-        idx = torch.arange(m, device=dev)
-        live = idx < j
-        R = H[:m]
-        eye = torch.eye(m, dtype=dt, device=dev)
-        diag = torch.diagonal(R)
-        R = torch.where(live[:, None] & live[None, :], R, eye)
-        R = R + torch.diag(torch.where(
-            live & ~(torch.abs(diag) > tiny), 1.0 - diag, 0.0))
-        rhs = torch.where(live, g[:m], 0.0)
-        y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
-        x_new = x + M(torch.einsum("k,k...->...", y, V[:m]))
-        rn_new = A.norm(b - A.mv(x_new))
-        return x_new, rn_new, j
+            h = torch.where(k == j, c * hj + s * hj1,
+                            torch.where(k == j + 1, 0.0, h))
+            qj = Q.index_select(0, j.reshape(1))
+            qj1 = Q.index_select(0, (j + 1).clamp(max=m).reshape(1))
+            Q_n = torch.where((k == j)[:, None], c * qj + s * qj1,
+                              torch.where((k == j + 1)[:, None],
+                                          c * qj1 - s * qj, Q))
+            gj = g.gather(0, j.reshape(1))[0]
+            g_n = torch.where(k == j, c * gj,
+                              torch.where(k == j + 1, -s * gj, g))
+            jn = (j + 1).clamp(max=m).reshape(1)
+            V.index_copy_(0, jn, torch.where(
+                step, w / torch.clamp(hw, min=tiny),
+                V.index_select(0, jn)[0])[None])
+            H = torch.where(step & (col == j)[None, :], h[:, None], H)
+            Q = torch.where(step, Q_n, Q)
+            g = torch.where(step, g_n, g)
+            res = torch.where(step, g_n.gather(0, jn)[0].abs(), res)
+            j = j + step.to(j.dtype)
+
+            # close the cycle whose Arnoldi loop test now fails:
+            # back-substitution on the j-leading block of R = H[:m, :m]
+            # (rows and columns past j are the identity with a zero right
+            # side), the update and the recomputed residual
+            ends = is_open & ~((j < m) & (res > target) & torch.isfinite(res))
+            live = live_idx < j
+            R = torch.where(live[:, None] & live[None, :], H[:m], eye)
+            diag = torch.diagonal(R)
+            R = R + torch.diag(torch.where(
+                live & ~(torch.abs(diag) > tiny), 1.0 - diag, 0.0))
+            rhs = torch.where(live, g[:m], 0.0)
+            y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
+            x_n = x + M(torch.einsum("k,k...->...", y, V[:m]))
+            r_n = b - A.mv(x_n)
+            rn_n = A.norm(r_n)
+            better = ends & torch.isfinite(rn_n) & (rn_n < brn)
+            bx = torch.where(better, x_n, bx)
+            brn = torch.where(better, rn_n, brn)
+            x = torch.where(ends, x_n, x)
+            r = torch.where(ends, r_n, r)
+            rn = torch.where(ends, rn_n, rn)
+            i = i + torch.where(ends, j, 0)
+            is_open = is_open & ~ends
+        ok_last = torch.isfinite(rn) & (rn <= brn)
+        x_out = torch.where(ok_last, x, bx)
+        rn_out = torch.where(ok_last, rn, brn)
+        return x_out, SolveStats(i, rnorm0, rn_out, rn_out <= target), (
+            i, x, b, rn, bx, brn, rnorm0)
 
     def solve_fn(self, A, b, x0, target=None):
-        """``target``: optional ABSOLUTE residual-norm target overriding
-        max(rtol |b - A x0|, atol)."""
+        """``init_carry`` and one ``solve_chunk``, as the JAX package's
+        ``solve_fn``.  ``target``: optional ABSOLUTE residual-norm target
+        overriding max(rtol |b - A x0|, atol)."""
         A, b, recover = condensed(A, b)
-        A = prepared(A)
-        M = _setup_precond(self.preconditioner, A)
-        atol, maxit = self.absoluteTolerance, self.nMaxIterations
-        rnorm0 = A.norm(b - A.mv(x0))
-        target = _target(target, self.relativeTolerance, atol, rnorm0)
-        limit = 1e8 * (rnorm0 + atol)
-        i = torch.zeros((), dtype=torch.int64, device=b.device)
-        x, rn, bx, bnorm = x0, rnorm0, x0, rnorm0
-        for _ in range(max(1, math.ceil(maxit / self.restart))):
-            active = ((i < maxit) & (rn > target) & torch.isfinite(rn)
-                      & (rn < limit))
-            x_n, rn_n, used = self._cycle(A, M, x, b, active, target)
-            better = active & torch.isfinite(rn_n) & (rn_n < bnorm)
-            bx = torch.where(better, x_n, bx)
-            bnorm = torch.where(better, rn_n, bnorm)
-            i = i + torch.where(active, used, 0)
-            x, rn = torch.where(active, x_n, x), torch.where(active, rn_n, rn)
-        last = torch.isfinite(rn) & (rn <= bnorm)
-        x_out = torch.where(last, x, bx)
-        rn_out = torch.where(last, rn, bnorm)
-        return recover(x_out), SolveStats(i, rnorm0, rn_out, rn_out <= target)
+        carry = self.init_carry(A, b, x0)
+        target = _target(target, self.relativeTolerance,
+                         self.absoluteTolerance, carry[3])
+        x, stats, _ = self.solve_chunk(A, carry, target)
+        return recover(x), stats
 
 
 class JacobiSolver(LinearSolver):

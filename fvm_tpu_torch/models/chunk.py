@@ -84,14 +84,14 @@ def _map(fn, tree):
     return tree
 
 
-def _copy_into(dst, src):
+def copy_into(dst, src):
     """Copy the tensors of ``src`` into the same-keyed buffers of ``dst``."""
     if set(dst) != set(src):
         raise KeyError(f"graph inputs changed: {sorted(src)} vs "
                        f"{sorted(dst)}")
     for k, v in src.items():
         if isinstance(v, dict):
-            _copy_into(dst[k], v)
+            copy_into(dst[k], v)
         else:
             dst[k].copy_(v)
 
@@ -103,56 +103,40 @@ def _scalars(scal: dict, device) -> dict:
             for k, v in scal.items()}
 
 
-class Runner:
-    """``build(trips)`` run eagerly on the CPU, as one CUDA graph replay
-    on a CUDA device (module docstring)."""
+class Graph:
+    """``fn()`` captured in one CUDA graph on ``device``: ``warm()`` runs
+    once eagerly on a side stream first (lazy library loads, solver handles
+    and host-side caches are set up before capture), then ``fn()`` is
+    captured and its return value kept as ``outputs`` (tensors in the
+    graph's memory, rewritten by each replay).  ``replay()`` runs the graph,
+    moves the captured launch counts to the counters and makes the checks
+    deferred at capture.  A capture that fails raises."""
 
-    def __init__(self, build, trips: int, device):
-        self.build = build
-        self.trips = int(trips)
-        self.device = torch.device(device)
-        self.graph = None
-        self.captured = None  # per-replay launch counts (CUDA only)
-        self.replays = 0
-        self._fn = build(self.trips)
-
-    def __call__(self, inputs: dict, scal: dict | None = None):
-        scal = scal or {}
-        if self.device.type != "cuda":
-            return self._fn(inputs, _scalars(scal, self.device))
-        if self.graph is None:
-            self._capture(inputs, scal)
-        else:
-            _copy_into(self._inputs, inputs)
-            for k, v in scal.items():
-                self._scal[k].fill_(v)
-        self.graph.replay()
-        _add(self.captured)
-        self.replays += 1
-        self._check()
-        return _map(torch.clone, self._outputs)
-
-    def _capture(self, inputs, scal):
-        self._inputs = _map(torch.clone, inputs)
-        self._scal = _scalars(scal, self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+    def __init__(self, fn, warm, device):
+        device = torch.device(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.build(1)(self._inputs, self._scal)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
+            warm()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()
         lbase._deferred_checks = []
         try:
             with torch.cuda.graph(graph):
-                self._outputs = self._fn(self._inputs, self._scal)
+                self.outputs = fn()
         finally:
             self._checks = lbase._deferred_checks
             lbase._deferred_checks = None
             self.captured = _delta(before)
             _add(self.captured, -1)
         self.graph = graph
+
+    def replay(self):
+        self.graph.replay()
+        _add(self.captured)
+        self._check()
 
     def _check(self):
         """The checks deferred at capture (``linear.base.check_info``),
@@ -164,3 +148,41 @@ class Runner:
             if not ok:
                 raise SolverError(f"{what} failed in a graph replay: info "
                                   f"{info.tolist()}")
+
+
+class Runner:
+    """``build(trips)`` run eagerly on the CPU, as one CUDA graph replay
+    on a CUDA device (module docstring)."""
+
+    def __init__(self, build, trips: int, device):
+        self.build = build
+        self.trips = int(trips)
+        self.device = torch.device(device)
+        self.graph = None  # Graph, once captured (CUDA only)
+        self.replays = 0
+        self._fn = build(self.trips)
+
+    @property
+    def captured(self):
+        """Per-replay launch counts (launches, shapes, gather-ELL) of the
+        captured graph, or None."""
+        return None if self.graph is None else self.graph.captured
+
+    def __call__(self, inputs: dict, scal: dict | None = None):
+        scal = scal or {}
+        if self.device.type != "cuda":
+            return self._fn(inputs, _scalars(scal, self.device))
+        if self.graph is None:
+            self._inputs = _map(torch.clone, inputs)
+            self._scal = _scalars(scal, self.device)
+            warm = self.build(1)
+            self.graph = Graph(
+                lambda: self._fn(self._inputs, self._scal),
+                lambda: warm(self._inputs, self._scal), self.device)
+        else:
+            copy_into(self._inputs, inputs)
+            for k, v in scal.items():
+                self._scal[k].fill_(v)
+        self.graph.replay()
+        self.replays += 1
+        return _map(torch.clone, self.graph.outputs)

@@ -66,9 +66,17 @@ class ELLMatrix:
         (empty fallback), eliminated rows are identity with zero rhs, and
         recover(x2) back-substitutes their exact values (the reference's
         CRMatrix::eliminateBoundaryEquations, CRMatrix.h:1064)."""
+        A2, rhs = self.condenser()
+        return (A2,) + rhs(b)
+
+    def condenser(self):
+        """``condense`` in two halves: (A2, rhs) with rhs(b) -> (b2,
+        recover).  The matrix half runs once; a preconditioner that applies
+        the same condensed matrix to many right sides (``CoupledSIMPLE``)
+        calls only ``rhs`` per application."""
         plan = None if self.dia is None else self.dia.cond_plan
         if plan is None:
-            return self, b, (lambda x: x)
+            return self, (lambda b: (b, lambda x: x))
         er, es, ep, ir, ik, ie = plan.t
         offv = torch.where(self.mask, self.off, 0.0)
         vE = torch.where(es >= 0, offv[es.clamp(min=0), er], 0.0)
@@ -85,27 +93,31 @@ class ELLMatrix:
         off2 = offv.clone()
         off2.index_put_((ik, ir), offv.new_zeros(()))
         off2.index_fill_(1, er, 0.0)
-        bE = b[er]
-        if b.ndim == 1:
-            b2 = b.index_add(0, ir, -vIn / dE[ie] * bE[ie])
-        else:
-            b2 = b.index_add(0, ir, -(vIn / dE[ie])[:, None] * bE[ie])
-        b2.index_fill_(0, er, 0.0)
         A2 = self.replace(
             diag=diag2, off=off2, dia=plan.dia2,
             dia_coef=None, dia_fb_vals=None,
         ).prepare()
 
-        def recover(x2):
-            if x2.ndim == 1:
-                xE = (bE - vE * x2[ep]) / dE
+        def rhs(b):
+            bE = b[er]
+            if b.ndim == 1:
+                b2 = b.index_add(0, ir, -vIn / dE[ie] * bE[ie])
             else:
-                xE = (bE - vE[:, None] * x2[ep]) / dE[:, None]
-            x2 = x2.clone()
-            x2[er] = xE
-            return x2
+                b2 = b.index_add(0, ir, -(vIn / dE[ie])[:, None] * bE[ie])
+            b2.index_fill_(0, er, 0.0)
 
-        return A2, b2, recover
+            def recover(x2):
+                if x2.ndim == 1:
+                    xE = (bE - vE * x2[ep]) / dE
+                else:
+                    xE = (bE - vE[:, None] * x2[ep]) / dE[:, None]
+                x2 = x2.clone()
+                x2[er] = xE
+                return x2
+
+            return b2, recover
+
+        return A2, rhs
 
     def dot(self, a, b):
         return torch.sum(a * b)

@@ -556,3 +556,106 @@ def test_failed_capture_raises(cuda):
         t.advance(8)
     assert t._runners[("chunk", 4)].graph is None
     torch.cuda.synchronize()
+
+
+# --- the Newton endgame's inner-solve graphs ---------------------------------
+
+def _newton_flow(device, n=16, **opts):
+    """The bench cavity at n^2 float64 after 40 SIMPLE outers on the CPU,
+    moved to ``device`` with the Newton options ``opts``."""
+    from fvm_tpu_torch.models.fmg import restore_state, snapshot_state
+
+    f, _ = coupled_cavity(n, device="cpu", dtype="float64")
+    f.advance(40)
+    g, _ = coupled_cavity(n, device=device, dtype="float64")
+    restore_state(g, snapshot_state(f))
+    g.options.update(dict(dict(
+        newtonKrylovTolerance=1e-10, newtonKrylovIterations=200,
+        newtonChunkIterations=10, newtonForcing="fixed"), **opts))
+    return g
+
+
+@pytest.mark.parametrize("inner", ["bicgstab", "gmres"])
+def test_newton_chunk_replay_equals_eager(cuda, inner):
+    """The chunked inner solve as graph replays (set-up graph, then trips
+    graphs with no read-back inside a chunk) equals the same chunks run
+    eagerly, bit for bit under deterministic algorithms."""
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = []
+        for graphed in (True, False):
+            g = _newton_flow(cuda, newtonInnerSolver=inner,
+                             newtonGmresRestart=8)
+            g._newton_graphed = graphed
+            h = [float(r[1]) for r in g.advanceNewton(2)]
+            out.append((h, g.state))
+        inner_run = g._runners[("newton", 10)]
+    finally:
+        torch.use_deterministic_algorithms(old)
+    (h_g, s_g), (h_e, s_e) = out
+    assert h_g == h_e
+    for k in s_g:
+        assert torch.equal(s_g[k], s_e[k]), k
+    assert inner_run.setup is None  # the eager run built no graph
+
+
+def test_newton_mixed_views_launch_float32_kernel(cuda):
+    """newtonInnerPrecision="float32": the inner solve's AMG cycles run the
+    float32 dia_stencil on the float32 views; the state stays float64."""
+    g = _newton_flow(cuda, newtonInnerPrecision="float32",
+                     newtonKrylovTolerance=1e-3)
+    dk.reset_launches()
+    g.advanceNewton(1)
+    torch.cuda.synchronize()
+    assert dk.type_launches(torch.float32)["jacobi"] > 0
+    assert dk.type_launches(torch.float32)["residual"] > 0
+    inner = g._runners[("newton", 10)]
+    assert sum(dk.type_launches(torch.float32,
+                                inner.trips.captured[1]).values()) > 0
+    assert g.state["velocity"].dtype == torch.float64
+
+
+def test_newton_failed_capture_raises(cuda):
+    """A set-up that reads a value back to the host cannot be captured:
+    the capture raises, and nothing falls back to the eager chunks."""
+    g = _newton_flow(cuda)
+    surrogate = g._newton_surrogate
+
+    def syncing(*args):
+        A = surrogate(*args)
+        float(A.diag.sum())  # a host read-back
+        return A
+
+    g._newton_surrogate = syncing
+    with pytest.raises(RuntimeError):
+        g.advanceNewton(1)
+    assert g._runners[("newton", 10)].setup is None
+    torch.cuda.synchronize()
+
+
+def test_promotion_leaves_no_dead_graph(cuda):
+    """The converge path's promotion: the float32 pair (with its coupled
+    graph) is dropped before the float64 pair captures its Newton graphs;
+    with the collector run at every allocation the capture still holds."""
+    from fvm_tpu_torch.models.fmg import restore_state, snapshot_state
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        f, t = coupled_cavity(16, device=cuda, dtype="float32")
+        for _ in range(3):
+            coupled_steps(f, t, 5)
+        snap = snapshot_state(f)
+        del f, t
+        g, _ = coupled_cavity(16, device=cuda, dtype="float64")
+        restore_state(g, snap)
+        g.options.update(newtonChunkIterations=10,
+                         newtonInnerPrecision="float32",
+                         newtonKrylovTolerance=1e-3, newtonRefreeze=True)
+        h = g.advanceNewton(2)
+        torch.cuda.synchronize()
+        assert all(np.isfinite(float(r[1])) for r in h)
+        assert g._runners[("newton", 10)].replays > 0
+    finally:
+        gc.set_threshold(*threshold)

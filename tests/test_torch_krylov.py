@@ -161,3 +161,141 @@ def test_cavity_cg_golden_history():
         ref = json.load(f)["cavity/CG/np1"]
     assert len(hist) == len(ref) == 30
     np.testing.assert_allclose(hist, ref, rtol=HIST_RTOL, atol=1e-12)
+
+
+# --- the chunked carry protocol and GMRES's restart loop ---------------------
+
+def _poisson(nx, ny):
+    """A 5-point Poisson ELL matrix in both packages (the system of
+    ``tests/test_linear.py:18-46``), built from one numpy table."""
+    n = nx * ny
+    cols = np.zeros((n, 4), dtype=np.int64)
+    off = np.zeros((n, 4))
+    mask = np.zeros((n, 4), dtype=bool)
+    for i in range(nx):
+        for j in range(ny):
+            c, k = i * ny + j, 0
+            for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                ii, jj = i + di, j + dj
+                if 0 <= ii < nx and 0 <= jj < ny:
+                    cols[c, k], off[c, k], mask[c, k] = ii * ny + jj, -1.0, True
+                    k += 1
+            cols[c, k:] = c
+    from fvm_tpu.ops.ell import ELLMatrix as JELL
+    from fvm_tpu_torch.ops.ell import ELLMatrix as TELL
+    jA = JELL(diag=jnp.full(n, 4.0), off=jnp.asarray(off.T.copy()),
+              cols=jnp.asarray(cols.T.copy(), jnp.int32),
+              mask=jnp.asarray(mask.T.copy()))
+    tA = TELL(diag=torch.full((n,), 4.0, dtype=torch.float64),
+              off=torch.from_numpy(off.T.copy()),
+              cols=torch.from_numpy(cols.T.copy()),
+              mask=torch.from_numpy(mask.T.copy()))
+    return jA, tA
+
+
+CHUNKED = {
+    "bicgstab": lambda L, it: L.BiCGStab(relative_tolerance=1e-11,
+                                         max_iterations=it),
+    "gmres": lambda L, it: L.GMRES(restart=15, relative_tolerance=1e-11,
+                                   max_iterations=it),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHUNKED))
+def test_chunked_solve_matches_one_chunk(name):
+    """The counterpart of ``tests/test_linear.py:121``: chunks of 25
+    iterations through ``init_carry``/``solve_chunk`` against one chunk of
+    the whole budget, bit for bit in the port (the carry continues one
+    iteration exactly; for BiCGStab also against ``solve_fn``), and equal
+    iterations and iterates to 1e-10 against fvm_tpu's chunks."""
+    jA, tA = _poisson(16, 14)
+    b = np.random.default_rng(5).standard_normal(16 * 14)
+    jb, tb = jnp.asarray(b), torch.from_numpy(b)
+    res = {}
+    for L, A, bb, zeros in ((jlin, jA, jb, jnp.zeros_like(jb)),
+                            (tlin, tA, tb, torch.zeros_like(tb))):
+        s = CHUNKED[name](L, 25)
+        carry = s.init_carry(A, bb, zeros)
+        target = 1e-11 * float(carry[-1])
+        for _ in range(12):
+            x, st, carry = s.solve_chunk(A, carry, target)
+            if bool(st.converged):
+                break
+        res[L] = (x, st, carry)
+    xt, stt, ct = res[tlin]
+    xj, stj, _ = res[jlin]
+    assert bool(stt.converged) and int(stt.iterations) > 25
+    assert int(stt.iterations) == int(stj.iterations)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=SOL_RTOL,
+                               atol=SOL_RTOL * float(np.abs(xj).max()))
+    # one chunk of the whole budget: the same carry, bit for bit
+    one = CHUNKED[name](tlin, int(stt.iterations) if name == "bicgstab"
+                        else 25 * 12)
+    c1 = one.init_carry(tA, tb, torch.zeros_like(tb))
+    x1, st1, c1 = one.solve_chunk(tA, c1, 1e-11 * float(c1[-1]))
+    assert int(st1.iterations) == int(stt.iterations)
+    assert torch.equal(x1, xt)
+    if name == "bicgstab":
+        for a, c in zip(c1, ct):
+            assert torch.equal(a, c)
+        xs, sts = one.solve_fn(tA, tb, torch.zeros_like(tb),
+                               target=1e-11 * float(c1[-1]))
+        assert torch.equal(xs, ct[9]) and int(sts.iterations) == int(
+            st1.iterations)
+
+
+class _NormScaled:
+    """M(r) = M0(r) (1 + delta (|r| - 1) / (|r| + 1)) with M0 linear: on the
+    unit vectors of every Arnoldi step M is M0, while the cycle's update
+    M(V y) is scaled by up to 1 +- delta.  So a cycle's Givens estimate
+    meets the target while the recomputed residual |b - A x| stays above it
+    by a margin of order delta: the case where the restart loop starts
+    another cycle after one that ended early (a deterministic margin; the
+    rounding-driven straddle of a linear preconditioner on an
+    ill-conditioned non-normal system moves the second cycle's count with
+    the round-off of each package)."""
+
+    def __init__(self, inner, norm, delta=1e-3):
+        self.inner, self.norm, self.delta = inner, norm, delta
+
+    def precond_setup(self, A):
+        M0 = self.inner.precond_setup(A)
+
+        def M(r):
+            s = self.norm(r)
+            return M0(r) * (1.0 + self.delta * (s - 1.0) / (s + 1.0))
+
+        return M
+
+
+@pytest.mark.parametrize("restart,maxit", [(10, 10), (16, 12)])
+def test_gmres_restarts_after_an_early_cycle(systems, restart, maxit):
+    """fvm_tpu's GMRES starts another cycle when one ended early on its
+    Givens estimate (fewer than ``restart`` steps) with the recomputed
+    residual still above the target and fewer than max_iterations done: in
+    the cavity's GMRES(restart=10, max_iterations=10) and with restart >
+    max_iterations.  The port runs the same cycles: equal iterations,
+    iterates to 1e-10."""
+    (jA, jb), (tA, tb) = systems["thermal"]
+
+    def solver(L, norm, it):
+        return L.GMRES(preconditioner=_NormScaled(L.AMG(coarse_size=16),
+                                                  norm),
+                       restart=restart, relative_tolerance=1e-5,
+                       max_iterations=it)
+
+    jnorm = lambda r: jnp.sqrt(jnp.sum(r * r))
+    tnorm = lambda r: torch.sqrt(torch.sum(r * r))
+    # fvm_tpu's first cycle alone: it ends early on its estimate with the
+    # recomputed residual above the target (measured 9 steps, 1e-3 > 1e-5)
+    _, s1 = solver(jlin, jnorm, 1).solve_fn(jA, jb, jnp.zeros_like(jb))
+    assert int(s1.iterations) < min(restart, maxit)
+    assert float(s1.residual) > 10 * 1e-5 * float(s1.residual0)
+    xj, sj = solver(jlin, jnorm, maxit).solve_fn(jA, jb, jnp.zeros_like(jb))
+    xt, st = solver(tlin, tnorm, maxit).solve_fn(tA, tb, torch.zeros_like(tb))
+    assert int(sj.iterations) > int(s1.iterations)  # a second cycle ran
+    assert bool(sj.converged) and bool(st.converged)
+    assert int(st.iterations) == int(sj.iterations)
+    xj = np.asarray(xj)
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=SOL_RTOL,
+                               atol=SOL_RTOL * float(np.abs(xj).max()))
