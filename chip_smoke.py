@@ -91,8 +91,33 @@ script exits non-zero before the last line):
                 step, ms per inner iteration, ``dia_stencil`` launches per
                 inner iteration, the idle share of a profiled chunk, peak
                 memory and the time to 1e-6;
-then the ``kernels`` JSON line (with this path's launches in the
-``(converge)`` rows) and, last, the device JSON line.
+ 15. homocase - bench's homoCase thermal case on its stand-in
+                (``cases.homocase_standin``, hex_3d for the absent
+                homoCase-10000.cas): cuda against cpu at 8^3 in float64,
+                then the 22^3 float32 run (20 outers as one graph replay):
+                cells/s, the final residual, launches per outer;
+ 16. channel  - bench's heated channel (``cases.heated_channel``, the
+                immersed slab and the ZeroGradient outflow): cuda against
+                cpu at 48 x 16 in float64 (flow, handoff, thermal), the
+                ``outerChunk`` replays against the eager loops bit for bit,
+                then the 384 x 128 float32 run to bench's tolerances
+                (``cases.channel_to_tol``): seconds, outers per phase,
+                mom_rel, thermal_rel, converged, ms per replayed outer,
+                launches per outer from the captures, the idle share of a
+                profiled chunk, the IB force and heat-flux integrals;
+ 17. electro  - bench's electrostatics solve on the prism stand-ins for
+                the absent cav_tetra.cas (``cases.electrostatics_standin``):
+                the 7,680-prism one cuda against cpu (iterations, the
+                solution to 1e-8) and timed; the 1,048,576-prism one: host
+                set-up by stage, its level (DIA or gather-ELL), kernel
+                against plain at its shape, iterations and
+                cell-iterations/s; then the model's default BiCGStab(AMG)
+                on it, whose greedy levels take the gather-ELL products:
+                the per-level table with bounds;
+then the ``kernels`` JSON line (with the converge path's launches in the
+``(converge)`` rows and the suite's in the ``(suite)`` rows, timed at the
+channel's and the card-size prisms' fine levels) and, last, the device
+JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -755,11 +780,12 @@ def gather_ell_timing(shape, dtype, device, mode):
     return ms, sum(e.count for e in events) / LEVEL_REPS
 
 
-def level_table(shapes, by_shape, gathers, dtype_name):
+def level_table(shapes, by_shape, gathers, dtype_name, steps=TIMED_STEPS):
     """Every smoothed level: Jacobi and residual per launch beside the
     bound (the variant the dispatch takes) and launches x (time - bound)
-    per step; on gather-ELL levels the products' device time, kernel
-    launches per product and products per step."""
+    per step (the counts are over ``steps`` steps or solves); on gather-ELL
+    levels the products' device time, kernel launches per product and
+    products per step."""
     import torch
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.tools import kernel_bench as kb
@@ -780,7 +806,7 @@ def level_table(shapes, by_shape, gathers, dtype_name):
             for mode in ("jacobi", "residual"):
                 ms, kernels = gather_ell_timing(s, dtype, device, mode)
                 bnd = kb.gather_ell_bound(n, K, mode, item)[0]
-                per = gathers.get((mode, n), 0) / TIMED_STEPS
+                per = gathers.get((mode, n), 0) / steps
                 total["gather"] += per * ms
                 total["gather_bound"] += per * bnd
                 total["gather_launches"] += per * kernels
@@ -805,7 +831,7 @@ def level_table(shapes, by_shape, gathers, dtype_name):
                                             b=o[3], omega=omega)
                  for o in ops], LEVEL_REPS)
             bnd = kb.bound(n, 1, len(s.offsets), mode, item)[0]
-            per = by_shape.get((tag, variant, mode, n), 0) / TIMED_STEPS
+            per = by_shape.get((tag, variant, mode, n), 0) / steps
             excess += per * (t - bnd)
             total["ms"] += per * t
             total["bound"] += per * bnd
@@ -1218,6 +1244,368 @@ def converge_phase(device, kernels, result=None):
     return rows
 
 
+# ---- 15-17. the suite of bench.py --suite -----------------------------------
+
+# phase 15: the homoCase stand-in, cuda against cpu at 8^3 in float64 (the
+# chunk of HOMO_OUTERS with zero tolerances, histories to SLICE_RTOL), then
+# bench's 22^3 float32 run (its residual below cases.HOMOCASE_RTOL of the
+# first outer's, the temperature within HOMO_RTOL of the linear profile)
+HOMO_SLICE_N = 8
+HOMO_OUTERS = 6
+HOMO_RTOL = 1e-5
+# phase 16: the channel at 48 x 16 (the slab below y = 0.25, float64),
+# cuda against cpu to CHANNEL_RTOL: 60 flow outers, the handoff and 8
+# thermal outers, as tests/test_torch_channel.py holds the CPU against
+# fvm_tpu (whose own histories move by 9.9e-13 and 9.5e-10 under round-off
+# there); then bench's 384 x 128 float32 run to tolerance
+CHANNEL_SLICE = (48, 16)
+CHANNEL_OUTERS, CHANNEL_TOUTERS = 60, 8
+CHANNEL_RTOL = 1e-8
+CHANNEL_REPLAY = (10, 30)  # (outerChunk, outers) of the replay vs eager
+CHANNEL_TIMED_CHUNKS = 3
+# phase 17: bench's electrostatics solve on the prism stand-ins; the
+# reference size cuda against cpu (the solution to PRISM_RTOL of its
+# largest entry; both solve to 1e-10)
+PRISM_RTOL = 1e-8
+
+
+def suite_counts():
+    """dia_stencil launches by (type tag, mode), from the counters."""
+    import torch
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    return {(dk.type_tag(t), m): v for t in (torch.float32, torch.float64)
+            for m, v in dk.type_launches(t).items()}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def per_outer(captured, trips):
+    """A runner's captured dia_stencil launches per outer, by mode."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    return ", ".join(f"{m} {captured[0].get(m, 0) / trips:g}"
+                     for m in dk.MODES)
+
+
+def profile_run(tag, label, fn, wall_ms, top=6):
+    """Profile one ``fn()`` (torch.profiler): device busy time against the
+    unprofiled ``wall_ms``, the idle share, and the kernels that take the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log(tag, f"{label}: device busy not measured (no device events)")
+        return
+    log(tag, f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"unprofiled ({100 - 100 * busy / wall_ms:.1f}% idle; the "
+        f"profiler's own cost can make this negative), "
+        f"{sum(r[1] for r in rows)} kernels")
+    for ms, n, key in rows[:top]:
+        log(tag, f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
+
+
+def homocase_phase(device, suite, smi):
+    """15: the homoCase stand-in (``cases.homocase_standin``, hex_3d in
+    place of the absent homoCase-10000.cas)."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    hs = {}
+    for dev in (device, "cpu"):
+        t = cases.homocase_standin(HOMO_SLICE_N, device=dev, dtype="float64")
+        t.options["outerChunk"] = HOMO_OUTERS
+        t.options["absoluteTolerance"] = 0.0
+        t.options["relativeTolerance"] = 0.0
+        hs[str(dev)] = [[h[1]] for h in t.advance(HOMO_OUTERS)]
+    worst = max_rel(hs[str(device)], hs["cpu"])
+    log("homocase", f"stand-in hex_3d({HOMO_SLICE_N}^3) float64, "
+        f"{HOMO_OUTERS} outers as one chunk: cuda {hs[str(device)][-1][0]:.6e}"
+        f" vs cpu {hs['cpu'][-1][0]:.6e}; max rel diff {worst:.3e} (tol "
+        f"{SLICE_RTOL:g})")
+    if not worst <= SLICE_RTOL:
+        raise AssertionError("homocase: cuda and cpu disagree")
+    t0 = time.perf_counter()
+    t = cases.homocase_standin(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shapes = kb.level_shapes(t.options["linearSolver"], t.mesh)
+    log("homocase", f"stand-in hex_3d({cases.HOMOCASE_N}^3) float32 "
+        f"(homoCase-10000.cas is absent): {t.mesh.n_interior_cells} cells, "
+        f"set up in {setup_s:.2f} s; hierarchy {describe(shapes)}")
+    dk.reset_launches()
+    r = cases.homocase_run(t)
+    counts = suite_counts()
+    add_counts(suite, counts)
+    runner = t._runners[("chunk", cases.HOMOCASE_ITERS)]
+    # what comes out: the linear profile between the plates
+    n_int = t.mesh.n_interior_cells
+    T = t.state["T"][:n_int].double()
+    z = t.mesh.cell_centroid[:n_int, 2].double()
+    err = float((T - (300.0 + 100.0 * z)).abs().max()) / 400.0
+    log("homocase", f"{cases.HOMOCASE_ITERS} outers as one graph replay in "
+        f"{r['seconds']:.6f} s: {r['value']:.6e} cells/s, final residual "
+        f"{r['residual']:.6e} ({r['residual_rel']:.3e} of the first; "
+        f"converged {r['converged']}), T off the linear profile by "
+        f"{err:.3e} of its largest; dia_stencil "
+        f"launches per outer (capture): "
+        f"{per_outer(runner.captured, cases.HOMOCASE_ITERS)}; in the run "
+        + ", ".join(f"{k[0]}/{k[1]} {v}" for k, v in counts.items() if v)
+        + f" [{smi}]")
+    if not (err <= HOMO_RTOL and r["converged"]):
+        raise AssertionError(f"homocase: residual {r['residual_rel']!r}, "
+                             f"profile {err!r}")
+    profile_run("homocase", f"one replay of {cases.HOMOCASE_ITERS} outers",
+                lambda: t.advance(cases.HOMOCASE_ITERS), 1e3 * r["seconds"])
+    return {k: v for k, v in r.items() if k != "histories"}
+
+
+def channel_phase(device, suite, errors, smi):
+    """16: bench's heated channel (``cases.heated_channel``); returns the
+    result and the channel's fine level (its LevelShape)."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    nx, ny = CHANNEL_SLICE
+    hist, models = {}, {}
+    for dev in (device, "cpu"):
+        f, th = cases.heated_channel(device=dev, dtype="float64", nx=nx,
+                                     ny=ny)
+        hf = [list(h[1:]) for h in f.advance(CHANNEL_OUTERS)]
+        th.state["massFlux"] = f.state["massFlux"]
+        ht = [[h[1]] for h in th.advance(CHANNEL_TOUTERS)]
+        hist[str(dev)] = (hf, ht)
+        models[str(dev)] = f
+    wf = max_rel(hist[str(device)][0], hist["cpu"][0])
+    wt = max_rel(hist[str(device)][1], hist["cpu"][1])
+    F = [models[k].getIBForceIntegral() for k in (str(device), "cpu")]
+    log("channel", f"{nx}x{ny} float64: {CHANNEL_OUTERS} flow outers max rel "
+        f"diff cuda vs cpu {wf:.3e}, {CHANNEL_TOUTERS} thermal outers after "
+        f"the handoff {wt:.3e} (tol {CHANNEL_RTOL:g}); IB force cuda "
+        f"{F[0].tolist()} vs cpu {F[1].tolist()}")
+    if not (wf <= CHANNEL_RTOL and wt <= CHANNEL_RTOL):
+        raise AssertionError("channel: cuda and cpu disagree")
+    # the outerChunk graph replays against the eager loop, bit for bit
+    chunk, outers = CHANNEL_REPLAY
+    f, th = cases.heated_channel(device=device, dtype="float64", nx=nx,
+                                 ny=ny)
+    f.options["outerChunk"] = chunk
+    hc = [list(h[1:]) for h in f.advance(outers)]
+    th.options["outerChunk"] = 4
+    th.state["massFlux"] = models[str(device)].state["massFlux"]
+    htc = [[h[1]] for h in th.advance(CHANNEL_TOUTERS)]
+    runner = f._runners[("chunk", chunk)]
+    same = (hc == hist[str(device)][0][:outers]
+            and htc == hist[str(device)][1])
+    log("channel", f"{nx}x{ny}: flow outerChunk {chunk} ({runner.replays} "
+        f"replays) and thermal outerChunk 4 "
+        f"{'bit-identical to' if same else 'DIFFER from'} the eager loops "
+        f"on the card")
+    if not same or runner.graph is None:
+        raise AssertionError("channel: the graph replay disagrees")
+    del f, th, models
+    gc.collect()
+
+    # bench's run at full size, float32
+    t0 = time.perf_counter()
+    flow, thermal = cases.heated_channel(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shapes = kb.level_shapes(flow.options["pressureLinearSolver"], flow.mesh)
+    log("channel", f"{cases.CHANNEL_NX}x{cases.CHANNEL_NY} float32: "
+        f"{flow.mesh.n_interior_cells} cells, slab of "
+        f"{int(flow.params['ib_mask'].sum())} cells, set up in {setup_s:.2f} "
+        f"s; pressure hierarchy {describe(shapes)}")
+    fine = shapes[0]
+    kernel_vs_plain("channel fine level", fine.rows, fine.offsets, device,
+                    errors, dtypes=("float32",))
+    dk.reset_launches()
+    r = cases.channel_to_tol(flow, thermal)
+    hf, ht = r.pop("histories")
+    counts = suite_counts()
+    add_counts(suite, counts)
+    fr = flow._runners[("chunk", cases.CHANNEL_CHUNK)]
+    tr = thermal._runners[("chunk", cases.CHANNEL_TCHUNK)]
+    log("channel", f"time to tolerance {r['value']:.4f} s: flow "
+        f"{r['flow_outers']} outers (mom_rel {r['mom_rel']:.6e}, cont rel "
+        f"{hf[-1][2] / hf[0][2]:.6e}), thermal {r['thermal_outers']} outers "
+        f"(thermal_rel {r['thermal_rel']:.6e}); converged {r['converged']} "
+        f"[{smi}]")
+    log("channel", "dia_stencil launches per outer (captures): flow "
+        f"{per_outer(fr.captured, cases.CHANNEL_CHUNK)}; thermal "
+        f"{per_outer(tr.captured, cases.CHANNEL_TCHUNK)}; gather-ELL "
+        f"products per flow outer "
+        f"{sum(fr.captured[2].values()) / cases.CHANNEL_CHUNK:g}; in the "
+        "run " + ", ".join(f"{k[0]}/{k[1]} {v}" for k, v in counts.items()
+                           if v))
+    # ms per replayed outer: whole flow chunks (the frozen form computes
+    # every trip), then the device idle share of one, profiled
+    times = []
+    for _ in range(CHANNEL_TIMED_CHUNKS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flow.advance(cases.CHANNEL_CHUNK)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    chunk_ms = min(times)
+    log("channel", f"one flow chunk of {cases.CHANNEL_CHUNK} outers: "
+        + ", ".join(f"{t:.3f}" for t in times) + f" ms ("
+        f"{chunk_ms / cases.CHANNEL_CHUNK:.4f} ms per replayed outer at the "
+        f"best)")
+    profile_run("channel", "one flow chunk",
+                lambda: flow.advance(cases.CHANNEL_CHUNK), chunk_ms, top=8)
+    Fib = flow.getIBForceIntegral()
+    q = thermal.getHeatFluxIntegral("bottom")
+    m_in, m_out = (flow.getMassFluxIntegral(g) for g in ("left", "right"))
+    log("channel", f"IB force on the slab {Fib.tolist()}, pressure part "
+        f"{flow.getPressureIntegralonIBFaces().tolist()}; heat into the "
+        f"bottom {q:.6e}; mass flux in {m_in:.6e} out {m_out:.6e}")
+    V = flow.state["velocity"]
+    if not (bool(torch.isfinite(V).all()) and np_finite(Fib)
+            and r["converged"]):
+        raise AssertionError(f"channel: not converged: {r}")
+    r["ms_per_replayed_outer"] = chunk_ms / cases.CHANNEL_CHUNK
+    return r, fine
+
+
+def np_finite(a):
+    return all(v == v and abs(v) != float("inf") for v in a.tolist())
+
+
+def electrostatics_phase(device, suite, errors, smi):
+    """17: bench's electrostatics solve on the prism stand-ins for the
+    absent cav_tetra.cas (``cases.electrostatics_standin``); returns the
+    card-size result and its fine level."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.linear import AMG, BiCGStab
+    from fvm_tpu_torch.mesh import compute_geometry
+    from fvm_tpu_torch.mesh import device as device_mod
+    from fvm_tpu_torch.models import electric as electric_mod
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops import ell
+    from fvm_tpu_torch.ops.dia import DIAInfo
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    res = {}
+    dk.reset_launches()
+    for dev in ("cpu", device):
+        em = cases.electrostatics_standin("reference", device=dev)
+        res[str(dev)] = cases.electrostatics_run(
+            em, reps=1 if dev == "cpu" else cases.ELECTRO_REPS)
+    add_counts(suite, suite_counts())
+    xg, xc = (res[k].pop("x").cpu() for k in (str(device), "cpu"))
+    err = float((xg - xc).abs().max() / xc.abs().max())
+    rg, rc = res[str(device)], res["cpu"]
+    log("electro", f"reference-size stand-in extrude(tri_2d(16,16), 15) "
+        f"({em.mesh.n_interior_cells} prisms; cav_tetra.cas is absent): "
+        f"iterations cuda {rg['iterations_to_tol']} / cpu "
+        f"{rc['iterations_to_tol']}, rel residual {rg['residual_rel']:.3e} / "
+        f"{rc['residual_rel']:.3e}; solutions differ by {err:.3e} of the "
+        f"largest (tol {PRISM_RTOL:g})")
+    if not (rg["converged"] and rc["converged"] and err <= PRISM_RTOL):
+        raise AssertionError("electro: reference size: cuda and cpu differ")
+    log("electro", f"reference size on the card: {rg['solve_seconds']:.6f} s "
+        f"per solve, {rg['value']:.6e} cell-iterations/s [{smi}]")
+
+    # the card-size stand-in: host set-up by stage
+    secs, parts = {}, {}
+    t0 = time.perf_counter()
+    mesh = cases.prism_mesh("card")
+    secs["mesh (extrude)"] = time.perf_counter() - t0
+    with stage_clock(parts, [
+            (device_mod, "compute_geometry", "metrics"),
+            (device_mod, "_cf_tables", "cf tables"),
+            (DIAInfo, "build", "DIA analysis and condensation"),
+            (electric_mod, "ls_gradient_coefficients",
+             "LS gradient coefficients")]):
+        t0 = time.perf_counter()
+        em = cases.electrostatics_standin(mesh=mesh, device=device)
+        torch.cuda.synchronize()
+        secs["device mesh and model"] = time.perf_counter() - t0
+    n_faces = mesh.n_faces
+    del mesh
+    dm = em.mesh
+    dia2 = dm.dia.cond_plan.dia2 if dm.dia.cond_plan else dm.dia
+    fine = kb._shape(dm.n_cells, dia2)
+    log("electro", f"card-size stand-in extrude(tri_2d(128,128), 32): "
+        f"{dm.n_interior_cells} prisms, {n_faces} faces, {dm.n_cells} rows; "
+        f"host seconds " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + "; of which " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; the solve's one level: {describe([fine])} (Jacobi "
+        "preconditioner: no hierarchy)")
+    kernel_vs_plain("prism fine level", fine.rows, fine.offsets, device,
+                    errors, nrhs=(1,), dia=fine.dia, dtypes=("float64",))
+    dk.reset_launches()
+    ell.gather_ell_ops.clear()
+    r = cases.electrostatics_run(em)
+    counts = suite_counts()
+    add_counts(suite, counts)
+    x = r.pop("x")
+    solves = cases.ELECTRO_REPS + 1
+    its = r["iterations_to_tol"]
+    log("electro", f"bench's solve: {its} iterations (converged "
+        f"{r['converged']}, rel residual {r['residual_rel']:.3e}), "
+        f"{r['solve_seconds']:.6f} s per solve, {r['value']:.6e} "
+        f"cell-iterations/s [{smi}]; dia_stencil launches per iteration "
+        + ", ".join(f"{k[1]} {v / solves / max(its, 1):.3g}"
+                    for k, v in counts.items() if v)
+        + f"; gather-ELL products {sum(ell.gather_ell_ops.values())}")
+    if not (bool(torch.isfinite(x).all()) and its > 0):
+        raise AssertionError(f"electro: card size: {r}")
+    A, b = em._linearize_potential(dm, em.params, em.state,
+                                   em._resolve_bcvals())
+    solver = em.options["electrostaticsLinearSolver"]
+    profile_run("electro", "one of bench's solves",
+                lambda: solver.solve_fn(A, b, torch.zeros_like(b)),
+                1e3 * r["solve_seconds"])
+    # queue 2 item b: the gather-ELL products on prisms, in the greedy
+    # hierarchy of the model's default solver (BiCGStab with AMG), one solve
+    amg = AMG()
+    t0 = time.perf_counter()
+    amg.setup_structure(*dm.host_cf(), dm.device)
+    amg_s = time.perf_counter() - t0
+    shapes = kb.level_shapes(amg, dm)
+    log("electro", f"greedy AMG on the prisms (the model's default solver): "
+        f"set up in {amg_s:.2f} s; hierarchy {describe(shapes)}")
+    solver = BiCGStab(preconditioner=amg, relative_tolerance=1e-10,
+                      max_iterations=50)
+    solver.exit_every = cases.ELECTRO_EXIT_EVERY
+    dk.reset_launches()
+    ell.gather_ell_ops.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xa, st = solver.solve_fn(A, b, torch.zeros_like(b))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_shape, gathers = dict(dk.dia_stencil.shapes), dict(ell.gather_ell_ops)
+    diff = float((xa - x).abs().max() / x.abs().max())
+    log("electro", f"BiCGStab(AMG) solve: {int(st.iterations)} iterations, "
+        f"rel residual {float(st.residual / st.residual0):.3e}, {dt:.4f} s; "
+        f"its solution differs from bench's by {diff:.3e} of the largest")
+    if not bool(torch.isfinite(xa).all()) or not gathers:
+        raise AssertionError("electro: the AMG solve ran no gather-ELL")
+    level_table(shapes, by_shape, gathers, "float64", steps=1)
+    return r, fine
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -1228,6 +1616,8 @@ def describe(shapes):
 
 def main() -> int:
     import torch
+
+    t_start = time.time()
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1443,6 +1833,25 @@ def main() -> int:
     # ---- 14. time to a converged residual at 1024^2 -------------------------
     kernels += converge_phase(device, kernels)
 
+    # ---- 15-17. bench.py --suite ------------------------------------------
+    suite, errors_suite = {}, {}
+    homocase_phase(device, suite, smi)
+    _, fine_ch = channel_phase(device, suite, errors_suite, smi)
+    _, fine_pr = electrostatics_phase(device, suite, errors_suite, smi)
+    log("suite", "dia_stencil launches over phases 15-17: " + ", ".join(
+        f"{k[0]}/{k[1]} {v}" for k, v in sorted(suite.items())))
+    kernels += time_modes(
+        " (suite)", fine_ch.rows, fine_ch.offsets,
+        (("mv", 2), ("residual", 1), ("jacobi", 1)),
+        {m: suite.get((dk.type_tag(torch.float32), m), 0) for m in dk.MODES},
+        errors_suite, "float32")
+    kernels += time_modes(
+        " (f64, suite)", fine_pr.rows, fine_pr.offsets,
+        (("mv", 1), ("residual", 1), ("jacobi", 1)),
+        {m: suite.get((dk.type_tag(torch.float64), m), 0) for m in dk.MODES},
+        errors_suite, "float64")
+
+    log("done", f"phases 1-17 in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

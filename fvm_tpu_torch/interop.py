@@ -14,8 +14,18 @@ import numpy as np
 import torch
 
 
-def _load(kind: str, have: dict, given: dict, dtype, device) -> dict:
-    if set(given) != set(have):
+# the immersed-boundary parameters (``set_immersed_boundary``): a snapshot
+# may carry them where the model has none yet; their leading size is the
+# mesh's cells or faces, and whether they are floating or bool
+IB_PARAMS = {"ib_mask": ("n_cells", False), "ib_value": ("n_cells", True),
+             "ib_solid_mask": ("n_cells", False),
+             "ib_solid_face": ("n_faces", False),
+             "ib_face_sign": ("n_faces", True)}
+
+
+def _load(kind: str, have: dict, given: dict, mesh, optional=()) -> dict:
+    extra = set(given) - set(have)
+    if set(have) - set(given) or extra - set(optional):
         raise KeyError(
             f"{kind}: keys {sorted(given)} do not match the model's "
             f"{sorted(have)}"
@@ -23,15 +33,27 @@ def _load(kind: str, have: dict, given: dict, dtype, device) -> dict:
     out = {}
     for k, v in given.items():
         a = np.asarray(v)
-        ref = have[k]
-        if tuple(a.shape) != tuple(ref.shape):
+        ref = have.get(k)
+        if ref is None:
+            size, floating = IB_PARAMS[k]
+            if a.ndim == 0 or a.shape[0] != getattr(mesh, size) or (
+                    a.dtype.kind == "f") != floating:
+                raise ValueError(
+                    f"{kind}[{k!r}]: shape {a.shape} ({a.dtype}) is not a "
+                    f"{'floating' if floating else 'bool'} array over the "
+                    f"mesh's {getattr(mesh, size)} {size[2:]}")
+            shape, is_float = a.shape, floating
+        else:
+            shape, is_float = tuple(ref.shape), ref.dtype.is_floating_point
+        if tuple(a.shape) != shape:
             raise ValueError(
                 f"{kind}[{k!r}]: shape {a.shape} does not match the model's "
-                f"{tuple(ref.shape)}"
+                f"{shape}"
             )
         t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
-        out[k] = t.to(device=device,
-                      dtype=dtype if ref.dtype.is_floating_point else ref.dtype)
+        out[k] = t.to(device=mesh.device,
+                      dtype=mesh.dtype if is_float else
+                      (ref.dtype if ref is not None else torch.bool))
     return out
 
 
@@ -41,12 +63,17 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
     ``model.init()``.  A JAX package model's
     ``fvm_tpu.models.fmg.snapshot_state`` (``momAp`` and ``massFlux``
     included) has the same keys as the port model's state and loads as
-    it is."""
+    it is; so do its params, the immersed-boundary ones (``IB_PARAMS``)
+    included.  New params rebuild the model's step and drop its captured
+    graphs, which read the old ones."""
     if not getattr(model, "_initialized", False):
         raise RuntimeError("load_model_state: call model.init() first")
     mesh = model.mesh
-    new_state = _load("state", model.state, state, mesh.dtype, mesh.device)
-    new_params = (model.params if params is None else
-                  _load("params", model.params, params, mesh.dtype,
-                        mesh.device))
+    new_state = _load("state", model.state, state, mesh)
+    if params is None:
+        model.state = new_state
+        return
+    new_params = _load("params", model.params, params, mesh,
+                       optional=IB_PARAMS)
     model.state, model.params = new_state, new_params
+    model._drop_compiled()

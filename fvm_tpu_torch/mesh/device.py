@@ -103,6 +103,12 @@ class DeviceMesh:
     def n_boundary_faces(self) -> int:
         return self.n_faces - self.n_interior_faces
 
+    def group_by_name(self, name: str):
+        for g in self.groups:
+            if g[1] == name:
+                return g
+        raise KeyError(name)
+
     def boundary_groups(self):
         return [g for g in self.groups if g[2] != "interior"]
 

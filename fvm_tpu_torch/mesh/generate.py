@@ -1,11 +1,11 @@
 """Structured mesh generators (counterpart of ``fvm_tpu/mesh/generate.py``).
 
-``quad_2d``, ``tri_2d`` and ``hex_3d``, vectorized with numpy: the JAX
-package's ``tri_2d`` and ``hex_3d`` append one Python list per face (6.3M
-of them at 128^3).  The face order, the node order within each face, the
-cell ids and the groups are the JAX package's, so every table built from
-these meshes matches ``fvm_tpu``'s entry by entry.  ``extrude`` (which
-needs the 2D cell->node table) is not ported yet.
+``quad_2d``, ``tri_2d``, ``hex_3d`` and ``extrude``, vectorized with
+numpy: the JAX package's ``tri_2d`` and ``hex_3d`` append one Python list
+per face (6.3M of them at 128^3), and its ``extrude`` loops per face and
+per layer.  The face order, the node order within each face, the cell ids
+and the groups are the JAX package's, so every table built from these
+meshes matches ``fvm_tpu``'s entry by entry.
 """
 
 from __future__ import annotations
@@ -212,3 +212,85 @@ def hex_3d(
     return Mesh(3, coords, face_nodes, fc,
                 _wall_groups(("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"),
                              gidx))
+
+
+def extrude(mesh2d: Mesh, nz: int, lz: float = 1.0, z0: float = 0.0) -> Mesh:
+    """Extrude a 2D mesh into 3D along z (reference: Mesh::extrude,
+    Mesh.h:314): each 2D cell becomes nz prisms or hexes, cell (c, k) is
+    k n_cells2d + c.  Faces: each 2D face extruded into nz quads (face
+    major, layer fastest), then the z-normal faces level by level (the
+    cell's vertices counter-clockwise, ``_cell_poly_nodes``).  The 2D
+    boundary groups become lateral groups, then 'zmin' and 'zmax'."""
+    m = mesh2d
+    if m.dim != 2:
+        raise ValueError("extrude requires a 2D mesh")
+    nn2, nc2, nf2 = m.n_nodes, m.n_interior_cells, m.n_faces
+    zs = z0 + lz * np.arange(nz + 1) / nz
+    coords = np.concatenate(
+        [np.concatenate([m.coords, np.full((nn2, 1), z)], axis=1)
+         for z in zs], axis=0)
+
+    # lateral faces: f = f2 nz + k
+    fn2 = m.face_nodes.col.reshape(nf2, 2)
+    k = np.tile(np.arange(nz, dtype=np.int64), nf2)
+    f2 = np.repeat(np.arange(nf2, dtype=np.int64), nz)
+    n0, n1 = fn2[f2, 0], fn2[f2, 1]
+    lat_rows = np.stack([k * nn2 + n0, k * nn2 + n1, (k + 1) * nn2 + n1,
+                         (k + 1) * nn2 + n0], axis=1)
+    c0, c1 = m.face_cells[f2, 0], m.face_cells[f2, 1]
+    bnd = (c1 >= nc2) | (c1 < 0) | (f2 >= m.n_interior_faces)
+    lat_fc = np.stack([k * nc2 + c0, np.where(bnd, -1, k * nc2 + c1)],
+                      axis=1)
+    names = [g.name for g in m.boundary_groups]
+    label = np.full(nf2, -1, dtype=np.int64)
+    for g in m.boundary_groups:
+        label[g.faces] = names.index(g.name)
+    lat_label = np.where(bnd, label[f2], -1)
+    n_lat = nf2 * nz
+
+    # z-normal faces: level k, cell c2 at n_lat + k nc2 + c2
+    ptr, poly = _cell_poly_nodes(m)
+    cnt = np.diff(ptr)
+    z_cols = (np.arange(nz + 1, dtype=np.int64)[:, None] * nn2
+              + poly[None, :]).reshape(-1)
+    z_cnt = np.tile(cnt, nz + 1)
+    kz = np.repeat(np.arange(nz + 1, dtype=np.int64), nc2)
+    cz = np.tile(np.arange(nc2, dtype=np.int64), nz + 1)
+    z_fc = np.stack([np.where(kz == 0, cz, np.minimum(kz, nz) * nc2 + cz
+                              - nc2),
+                     np.where((kz == 0) | (kz == nz), -1, kz * nc2 + cz)],
+                    axis=1)
+
+    row_ptr = np.zeros(n_lat + len(kz) + 1, dtype=np.int64)
+    np.cumsum(np.concatenate([np.full(n_lat, 4, dtype=np.int64), z_cnt]),
+              out=row_ptr[1:])
+    face_nodes = CRConnectivity(
+        row_ptr, np.concatenate([lat_rows.reshape(-1), z_cols]),
+        coords.shape[0])
+    fc = np.concatenate([lat_fc, z_fc], axis=0)
+    groups = [(i + 1, name, "wall", np.nonzero(lat_label == i)[0])
+              for i, name in enumerate(dict.fromkeys(names))]
+    groups.append((len(groups) + 1, "zmin", "wall",
+                   n_lat + np.arange(nc2, dtype=np.int64)))
+    groups.append((len(groups) + 1, "zmax", "wall",
+                   n_lat + nz * nc2 + np.arange(nc2, dtype=np.int64)))
+    return Mesh(3, coords, face_nodes, fc, groups)
+
+
+def _cell_poly_nodes(mesh2d: Mesh):
+    """Counter-clockwise vertices of every 2D cell, as CSR (ptr, nodes):
+    each cell's distinct nodes sorted by their angle about the nodes'
+    mean, cells of one vertex count at a time."""
+    cn = mesh2d.cell_nodes
+    cnt = cn.row_counts()
+    out = np.empty_like(cn.col)
+    for k in np.unique(cnt):
+        cells = np.nonzero(cnt == k)[0]
+        idx = cn.row_ptr[cells][:, None] + np.arange(k)
+        nodes = cn.col[idx]
+        pts = mesh2d.coords[nodes]
+        ctr = pts.mean(axis=1)
+        ang = np.arctan2(pts[:, :, 1] - ctr[:, None, 1],
+                         pts[:, :, 0] - ctr[:, None, 0])
+        out[idx] = np.take_along_axis(nodes, np.argsort(ang, axis=1), axis=1)
+    return cn.row_ptr, out

@@ -114,10 +114,33 @@ class Mesh:
         self.face_cells = fc  # (n_faces, 2): owner, neighbor (ghost for bdry)
         self.n_boundary_faces = n_bfaces
         self.n_cells = self.n_interior_cells + n_bfaces  # total incl. ghosts
+        self._cell_faces = None
+        self._cell_nodes = None
 
     @property
     def boundary_groups(self) -> list[FaceGroup]:
         return [g for g in self.face_groups if g.group_type != "interior"]
+
+    @property
+    def cell_faces(self) -> CRConnectivity:
+        """Interior cells -> faces (ghost cells excluded; they have 1 face)."""
+        if self._cell_faces is None:
+            rows = np.concatenate([self.face_cells[:, 0],
+                                   self.face_cells[:, 1]])
+            cols = np.tile(np.arange(self.n_faces, dtype=np.int64), 2)
+            keep = rows < self.n_interior_cells
+            self._cell_faces = CRConnectivity.from_pairs(
+                rows[keep], cols[keep], self.n_interior_cells, self.n_faces)
+        return self._cell_faces
+
+    @property
+    def cell_nodes(self) -> CRConnectivity:
+        """Interior cells -> nodes, each in first-seen order over the
+        cell's faces."""
+        if self._cell_nodes is None:
+            self._cell_nodes = self.cell_faces.multiply(self.face_nodes,
+                                                        drop_self=False)
+        return self._cell_nodes
 
     def __repr__(self) -> str:
         return (

@@ -17,11 +17,13 @@ import contextlib
 import functools
 import math
 
+import numpy as np
 import torch
 
 from ..core import rlog
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError, SolverError
+from ..ops import assembly
 from .chunk import Runner
 
 
@@ -118,6 +120,76 @@ class Model:
         if self.options.get("profile"):
             return rlog.tracer.phase(f"{self.name}/{name}")
         return contextlib.nullcontext()
+
+    # --- post-processing helpers (single device) --------------------------
+
+    def _map_mesh(self, fn, *args):
+        """``fn(mesh, *args)`` (the JAX package vmaps it over shards when
+        distributed, ``fvm_tpu/models/base.py:221``)."""
+        return fn(self.mesh, *args)
+
+    def _sum_group(self, g, F):
+        """Sum a per-face quantity (nf, ...) over a boundary group's faces
+        (``fvm_tpu/models/base.py:229``)."""
+        return F[self.mesh.group_faces(g)].sum(dim=0)
+
+    def _group(self, group_name):
+        """A boundary group's tuple, by name or as given."""
+        return (self.mesh.group_by_name(group_name)
+                if isinstance(group_name, str) else group_name)
+
+    # --- immersed boundary, mask form (fvm_tpu/models/base.py:287-342,
+    # 462-505; the reference's GenericIBDiscretization.h consumers) --------
+
+    def _set_immersed_boundary(self, mask, value, stencil=None,
+                               implicit=True) -> None:
+        """Pin the cells of ``mask`` (per cell, interior ordering) to
+        ``value`` (a scalar or per-cell (n,) / (n, m) body value), padded to
+        the device mesh's cells.  Call after ``init()``, which rebuilds the
+        params.  The step and its captured graphs are dropped, so the next
+        advance runs (and captures) the step with the IB rows."""
+        if not self._initialized:
+            # init() rebuilds self.params and would silently wipe the masks
+            raise ConfigError("call init() before set_immersed_boundary()")
+        if stencil is not None:
+            raise ConfigError(
+                f"{self.name}: the stencil form of the immersed boundary "
+                "(IBManager interpolation rows) is not ported yet (ROADMAP "
+                "queue 1 item 9); pass the mask form")
+        mesh = self.mesh
+        nc = mesh.n_cells
+        m = np.zeros(nc, dtype=bool)
+        marr = np.asarray(mask, dtype=bool)
+        m[: len(marr)] = marr  # the device mesh appends ghost/padding cells
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        v = torch.as_tensor(np.asarray(value, dtype=np.float64)).to(
+            mesh.dtype)
+        if v.ndim == 0:
+            v = v.expand(nc).clone()
+        elif v.shape[0] != nc:
+            vv = torch.zeros((nc,) + tuple(v.shape[1:]), dtype=mesh.dtype)
+            vv[: v.shape[0]] = v
+            v = vv
+        self.params["ib_mask"] = torch.from_numpy(m).to(mesh.device)
+        self.params["ib_value"] = v.to(mesh.device)
+        self._drop_compiled()
+
+    def _drop_compiled(self) -> None:
+        """Rebuild the step and drop the runners (and their CUDA graphs)
+        after a change of params keys: a graph freezes the params it was
+        captured with, as the JAX package's jitted step retraces on a new
+        params pytree."""
+        self._step = self._build_step()
+        self._runners = {}
+
+    def _apply_ib(self, mesh, params, A, r, phi):
+        """Immersed-boundary rows: the masked cells pinned to their value
+        (``assembly.dirichlet_cells``)."""
+        if "ib_mask" in params:
+            A, r = assembly.dirichlet_cells(A, r, params["ib_mask"],
+                                            params["ib_value"], phi)
+        return A, r
 
     # --- chunked outer loop ----------------------------------------------
     #

@@ -22,8 +22,11 @@ Ported so far: SIMPLE and SIMPLEC with ``nPressureCorrectors``, the
 convection schemes, BDF transient terms, BCs 'NoSlipWall',
 'VelocityBoundary', 'PressureBoundary' and 'Symmetry', the coupled
 pressure-velocity step (``advanceCoupled``), Anderson acceleration and the
-JFNK Newton endgame (``advanceNewton``).  'SlipJump', immersed boundaries,
-the FMG prolongation, tangents and adjoints come later.
+JFNK Newton endgame (``advanceNewton``), the mask form of the immersed
+boundary in the SIMPLE step (as in the JAX package, not in
+``advanceCoupled`` or the Newton residual) and the force and flux
+integrals.  'SlipJump', the stencil form of the immersed boundary, the FMG
+prolongation, tangents and adjoints come later.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import sys
 import time
 import weakref
 
+import numpy as np
 import torch
 
 from ..core.options import BoundaryCondition, ModelOptions
@@ -376,6 +380,9 @@ class FlowModel(Model):
             A, r = assembly.assemble(mesh, flux, r_cell=r_cell,
                                      diag_cell=diag_cell)
             A, r = identity_ghost_rows(A, r)
+            if "ib_mask" in params:
+                # immersed body: pin solid/IB-band cells to the body velocity
+                A, r = me._apply_ib(mesh, params, A, r, V)
             if l1_norm:
                 # the reference's convergence.dat records the L1 momentum
                 # residual of the first component (testFlowParallel.py)
@@ -433,10 +440,19 @@ class FlowModel(Model):
                 mdot_int = rho_f * (Vbar * mesh.face_area).sum(dim=1) - rc
                 bmdot = me._boundary_mass_flux(mesh, params, state2, bcvals)
                 mdot = torch.where(bnd, bmdot, mdot_int)
+                if "ib_solid_face" in params:
+                    mdot = torch.where(params["ib_solid_face"], 0.0, mdot)
 
                 cont_flux = FaceFlux(F=mdot, dF_dO=Df_cont, dF_dN=-Df_cont)
                 Ap, rp = assembly.assemble(mesh, cont_flux)
                 Ap, rp = identity_ghost_rows(Ap, rp)
+                if "ib_solid_mask" in params:
+                    # solid cells: pressure correction pinned to 0 (the Df
+                    # coupling into them stays, so a fluid region sealed by
+                    # the body keeps a pressure reference)
+                    Ap, rp = assembly.dirichlet_cells(
+                        Ap, rp, params["ib_solid_mask"], 0.0,
+                        torch.zeros_like(p))
                 if cont_norm is None:
                     cont_norm = Ap.norm(rp)
                 if not me._has_pressure_bc:
@@ -457,6 +473,8 @@ class FlowModel(Model):
                 V = V - vol_corr[:, None] * gradpc
                 dmdot = -Df_corr * (mesh.take_nbr(pc_s) - mesh.take_owner(pc_s))
                 mdot = torch.where(bnd & ~pres_face, mdot, mdot + dmdot)
+                if "ib_solid_face" in params:
+                    mdot = torch.where(params["ib_solid_face"], 0.0, mdot)
 
             new_state = dict(state)
             new_state["velocity"] = V
@@ -1227,6 +1245,95 @@ class FlowModel(Model):
         if "velocity_N2" in self.state:
             self.state["velocity_N2"] = self.state["velocity_N1"]
         self.state["velocity_N1"] = self.state["velocity"]
+
+    # --- immersed boundary and integrals (fvm_tpu/models/flow.py:2097-2222)
+
+    def set_immersed_boundary(self, mask, velocity, solid_mask=None,
+                              stencil=None) -> None:
+        """Immersed body in the flow (reference: IBM flow pipeline,
+        scripts/IBMSetup.py + GenericIBDiscretization.h).
+
+        ``mask``: cells pinned to the body ``velocity`` ((dim,) or (n,
+        dim)); ``solid_mask``: the strictly solid cells, whose pressure
+        correction is pinned to 0 and whose faces carry no mass flux (the
+        body surface the force integral sums over).  Call after
+        ``init()``; the stencil form raises (not ported yet)."""
+        mesh = self.mesh
+        v = np.asarray(velocity, dtype=np.float64)
+        v = np.broadcast_to(v, (mesh.n_interior_cells, mesh.dim)).copy()
+        self._set_immersed_boundary(mask, v, stencil=stencil)
+        if solid_mask is None:
+            return
+        sm = np.zeros(mesh.n_cells, dtype=bool)
+        smarr = np.asarray(solid_mask, dtype=bool)
+        sm[: len(smarr)] = smarr
+        so = sm[mesh.face_cell0.cpu().numpy()]
+        sn = sm[mesh.face_cell1.cpu().numpy()]
+        is_int = np.arange(mesh.n_faces) < mesh.n_interior_faces
+        # orientation for the force integral: +A (owner -> neighbour)
+        # points INTO the solid when the neighbour is solid
+        sign = np.where(sn & ~so, 1.0, np.where(so & ~sn, -1.0, 0.0))
+        sign = np.where(is_int, sign, 0.0)
+        dev = mesh.device
+        self.params["ib_solid_mask"] = torch.from_numpy(sm).to(dev)
+        self.params["ib_solid_face"] = torch.from_numpy(
+            (so | sn) & is_int).to(dev)
+        self.params["ib_face_sign"] = torch.from_numpy(sign).to(
+            dev, mesh.dtype)
+        self._drop_compiled()
+
+    def getPressureIntegralonIBFaces(self):
+        """Pressure-only force on the immersed body (reference:
+        FlowModel::getPressureIntegralonIBFaces)."""
+        return self.getIBForceIntegral(pressure_only=True)
+
+    def getIBForceIntegral(self, pressure_only: bool = False):
+        """Force of the fluid on the immersed body, (dim,) numpy: pressure
+        plus viscous momentum flux through the body faces."""
+        if "ib_face_sign" not in self.params:
+            raise ConfigError(
+                "call set_immersed_boundary(solid_mask=...) first")
+
+        def face_force(m, V, p, mu, sgn, grad_coeff=None):
+            p_f = assembly.cells_to_faces_distance_weighted(m, p)
+            F = p_f[:, None] * m.face_area
+            if not pressure_only:
+                mu_f = disc.harmonic_face_gamma(m, mu)
+                gradV = (gradient(m, grad_coeff, V) if grad_coeff is not None
+                         else None)
+                F = F + disc.diffusion_flux(m, V, mu_f, gradV).F
+            return torch.where(sgn[:, None] != 0.0, sgn[:, None] * F,
+                               0.0).sum(dim=0)
+
+        args = (self.state["velocity"], self.state["pressure"],
+                self.params["mu"], self.params["ib_face_sign"])
+        if "grad_coeff" in self.params:
+            args = args + (self.params["grad_coeff"],)
+        return self._map_mesh(face_force, *args).cpu().numpy()
+
+    def getMassFluxIntegral(self, group_name) -> float:
+        """Net mass flux out of the domain through a boundary group."""
+        return float(self._sum_group(self._group(group_name),
+                                     self.state["massFlux"]))
+
+    def getMomentumFluxIntegral(self, group_name):
+        """Force on a boundary group, (dim,) numpy: pressure + viscous
+        (reference: getMomentumFluxIntegral)."""
+
+        def face_force(m, V, p, mu, grad_coeff=None):
+            mu_f = disc.harmonic_face_gamma(m, mu)
+            gradV = (gradient(m, grad_coeff, V) if grad_coeff is not None
+                     else None)
+            dflux = disc.diffusion_flux(m, V, mu_f, gradV)
+            p_f = assembly.cells_to_faces_distance_weighted(m, p)
+            return dflux.F + p_f[:, None] * m.face_area
+
+        args = (self.state["velocity"], self.state["pressure"],
+                self.params["mu"])
+        if "grad_coeff" in self.params:
+            args = args + (self.params["grad_coeff"],)
+        F = self._map_mesh(face_force, *args)
+        return self._sum_group(self._group(group_name), F).cpu().numpy()
 
     def getVelocity(self):
         """Interior-cell velocities as a host numpy (n, dim) array."""

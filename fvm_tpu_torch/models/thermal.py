@@ -5,10 +5,12 @@ The reference's ThermalModel (ThermalModel.h:19, ThermalModel_impl.h:84
 ThermalBC.h): one linearize-assemble-solve step per outer iteration.
 
 BC types ported so far: 'SpecifiedTemperature', 'SpecifiedHeatFlux'
-(per-area, positive into the domain), 'Symmetry' and 'Convective'
-(heatTransferCoefficient + farFieldTemperature).  'ZeroGradient',
-'Radiative', 'Mixed', 'Periodic', double-shell interfaces, immersed
-boundaries and tangents come later.
+(per-area, positive into the domain), 'Symmetry', 'ZeroGradient' (a
+convective outflow) and 'Convective' (heatTransferCoefficient +
+farFieldTemperature); the mask form of the immersed boundary and
+``getHeatFluxIntegral``.  'Radiative', 'Mixed', 'Periodic', double-shell
+interfaces, the stencil form of the immersed boundary and tangents come
+later.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ class ThermalBC(BoundaryCondition):
         "SpecifiedTemperature",
         "SpecifiedHeatFlux",
         "Symmetry",
+        # convective outflow: the ghost is extrapolated (no diffusive flux)
+        # but the convective face flux stays, unlike Symmetry, which zeroes
+        # the whole face flux and traps energy at a flow-through boundary
+        "ZeroGradient",
         "Convective",
     )
     _defaults = {
@@ -150,8 +156,8 @@ class ThermalModel(Model):
                 flux = bck.set_flux_fixed(flux, sl, -q * mesh.face_area_mag[sl])
             elif t == "Symmetry":
                 flux = bck.set_flux_fixed(flux, sl, 0.0)
-            # SpecifiedTemperature / Convective keep the diffusive face
-            # flux (it references the ghost value)
+            # SpecifiedTemperature / ZeroGradient / Convective keep the
+            # face flux (the diffusive part references the ghost value)
 
         # cell terms
         diag_cell, r_cell = disc.source_term(mesh, params["src"])
@@ -177,7 +183,7 @@ class ThermalModel(Model):
                     mesh, A, r, gc, bcvals[f"{g[1]}:specifiedTemperature"], T,
                     valid, scale,
                 )
-            elif t in ("SpecifiedHeatFlux", "Symmetry"):
+            elif t in ("SpecifiedHeatFlux", "Symmetry", "ZeroGradient"):
                 A, r = bck.extrapolation_rows(mesh, A, r, gc, T, valid, scale)
             elif t == "Convective":
                 amag = mesh.face_area_mag[sl]
@@ -188,6 +194,9 @@ class ThermalModel(Model):
                 A, r = bck.robin_sink_rows(mesh, A, r, gc, coeff, sink)
             else:
                 raise ConfigError(f"ThermalModel: unhandled bc_type {t!r}")
+
+        # immersed-boundary rows (the mask form: pinned cells)
+        A, r = self._apply_ib(mesh, params, A, r, T)
 
         # double-shell interfaces (fvm_tpu: ifc.apply_model_interfaces) are
         # an identity on a mesh without them, which is every mesh the port
@@ -255,6 +264,36 @@ class ThermalModel(Model):
         if "T_N2" in self.state:
             self.state["T_N2"] = self.state["T_N1"]
         self.state["T_N1"] = self.state["T"]
+
+    def set_immersed_boundary(self, mask, value, stencil=None,
+                              implicit=True) -> None:
+        """Pin the cells of ``mask`` to a temperature ``value`` (scalar or
+        per cell).  The stencil form raises (not ported yet)."""
+        self._set_immersed_boundary(mask, value, stencil, implicit)
+
+    def getHeatFluxIntegral(self, group_name) -> float:
+        """Net heat flow INTO the domain through a boundary group
+        (reference: ThermalModel_impl.h:400 getHeatFluxIntegral)."""
+        mesh = self.mesh
+        g = self._group(group_name)
+        bc = self.bc[g[1]]
+        if bc.bc_type == "SpecifiedHeatFlux":
+            q = bc.resolve("specifiedHeatFlux", g[4], mesh.dtype, mesh.device)
+            return float((q * mesh.face_area_mag[mesh.group_faces(g)]).sum())
+        if bc.bc_type == "Symmetry":
+            return 0.0
+
+        def face_flux(m, T, k, grad_coeff=None):
+            gamma_f = disc.harmonic_face_gamma(m, k)
+            gradT = (gradient(m, grad_coeff, T) if grad_coeff is not None
+                     else None)
+            return disc.diffusion_flux(m, T, gamma_f, gradT).F
+
+        args = (self.state["T"], self.params["k_cell"])
+        if "grad_coeff" in self.params:
+            args = args + (self.params["grad_coeff"],)
+        F = self._map_mesh(face_flux, *args)
+        return float(-self._sum_group(g, F))
 
     def getTemperature(self):
         """Interior-cell temperatures as a host numpy array."""

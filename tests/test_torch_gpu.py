@@ -23,11 +23,14 @@ import torch
 
 from fvm_tpu_torch import hostlib
 from fvm_tpu_torch.cases import (coupled_cavity, coupled_cavity_3d,
-                                 coupled_step, coupled_steps)
+                                 coupled_step, coupled_steps,
+                                 electrostatics_run, electrostatics_standin,
+                                 heated_channel)
 from fvm_tpu_torch.linear import AMG
 from fvm_tpu_torch.linear.amg import aggregate_plain
 from fvm_tpu_torch.mesh import build_device_mesh
 from fvm_tpu_torch.mesh.generate import hex_3d, quad_2d, tri_2d
+from fvm_tpu_torch.models import FlowModel
 from fvm_tpu_torch.ops import dia_kernel as dk
 from fvm_tpu_torch.ops.dia import fused_apply
 from fvm_tpu_torch.ops.ell import ELLMatrix
@@ -659,3 +662,70 @@ def test_promotion_leaves_no_dead_graph(cuda):
         assert g._runners[("newton", 10)].replays > 0
     finally:
         gc.set_threshold(*threshold)
+
+
+# ---- the suite: immersed boundary, heated channel, electrostatics ----------
+
+def _ib_cavity(device, chunk):
+    f = FlowModel(build_device_mesh(quad_2d(20, 20), dtype="float64",
+                                    device=device))
+    f.options["verbose"] = False
+    f.options["outerChunk"] = chunk
+    f.vc["viscosity"] = 0.1
+    for g in ("left", "right", "bottom", "top"):
+        f.bc[g].bc_type = "NoSlipWall"
+    f.bc["top"]["specifiedXVelocity"] = 1.0
+    f.init()
+    return f
+
+
+def test_ib_set_after_a_capture_replays_the_new_step(cuda):
+    """A chunk captured without the immersed boundary is dropped when it
+    is set: the next chunked advance captures the step with the IB rows
+    and equals the eager loop with the IB bit for bit."""
+    chunked, eager = _ib_cavity(cuda, 4), _ib_cavity(cuda, 0)
+    chunked.advance(8)
+    eager.advance(8)
+    assert chunked._runners[("chunk", 4)].graph is not None
+    cc = chunked.mesh.cell_centroid[:400].cpu().numpy()
+    solid = ((cc[:, 0] > 0.3) & (cc[:, 0] < 0.7) & (cc[:, 1] > 0.4)
+             & (cc[:, 1] < 0.6))
+    for f in (chunked, eager):
+        f.set_immersed_boundary(solid, [0.0, 0.0], solid_mask=solid)
+    assert chunked._runners == {}
+    hc, he = chunked.advance(8), eager.advance(8)
+    assert chunked._runners[("chunk", 4)].graph is not None
+    assert [tuple(map(float, h)) for h in hc] == [
+        tuple(map(float, h)) for h in he]
+    assert torch.equal(chunked.state["velocity"], eager.state["velocity"])
+
+
+def test_channel_chunk_replay_equals_eager(cuda):
+    """The heated channel's flow and thermal ``outerChunk`` replays equal
+    the eager loops bit for bit, and the CPU to 1e-8."""
+    hist = []
+    for dev, chunk in ((cuda, 0), (cuda, 5), ("cpu", 0)):
+        f, t = heated_channel(device=dev, dtype="float64", nx=48, ny=16)
+        f.options["outerChunk"] = t.options["outerChunk"] = chunk
+        hf = [tuple(map(float, h[1:])) for h in f.advance(20)]
+        t.state["massFlux"] = f.state["massFlux"]
+        ht = [float(h[1]) for h in t.advance(5)]
+        hist.append((hf, ht))
+    assert hist[0] == hist[1]
+    np.testing.assert_allclose(hist[0][0], hist[2][0], rtol=1e-8)
+    np.testing.assert_allclose(hist[0][1], hist[2][1], rtol=1e-8)
+
+
+def test_electrostatics_cuda_matches_plain(cuda):
+    """bench's solve on the reference-size prism stand-in on the card (the
+    kernel on the fine level) against the CPU (its plain version): the
+    solution to 1e-8 of its largest entry, both converged."""
+    dk.reset_launches()
+    rg = electrostatics_run(electrostatics_standin("reference",
+                                                   device=cuda), reps=1)
+    assert sum(dk.type_launches(torch.float64).values()) > 0
+    rc = electrostatics_run(electrostatics_standin("reference",
+                                                   device="cpu"), reps=1)
+    assert rg["converged"] and rc["converged"]
+    xg, xc = rg["x"].cpu(), rc["x"]
+    assert float((xg - xc).abs().max()) <= 1e-8 * float(xc.abs().max())
