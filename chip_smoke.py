@@ -114,10 +114,39 @@ script exits non-zero before the last line):
                 cell-iterations/s; then the model's default BiCGStab(AMG)
                 on it, whose greedy levels take the gather-ELL products:
                 the per-level table with bounds;
-then the ``kernels`` JSON line (with the converge path's launches in the
+ 18. family   - bench's 1024^2 float32 cavity with the pressure and thermal
+                solves of the golden families ILU0 and SPIKE
+                (``cases.cavity_models`` with ``cases.family_solver``, one
+                device mesh for both): eager outers, ms per outer,
+                pressure iterations per outer, ``dia_stencil`` launches by
+                mode and by (type, variant, mode, rows, D) (the ILU sweeps
+                are the D 2 residual launches), the kernels of a profiled
+                ILU0 outer; one application of each preconditioner timed
+                (graph-replayed, eager) and its share of a graph-replayed
+                outer, whose time gives the eager outers' idle share;
+                the ILU apply's kernel path against its plain version at
+                full width (max abs err 0); the ILU
+                sweep against its bound, its plain version and
+                ``torch.addmv``; one outer as a graph replay (bit for bit
+                against the eager outer); cuda against cpu at 64^2
+                float64 over 10 outers with tight inner solves (the CPU
+                run in a child process beside the card's);
+ 19. plate    - the two-material plate (``cases.two_material_plate``: a
+                contact-resistance interface and periodic walls) cuda
+                against cpu at 64 x 16, the closure inside ``outerChunk``
+                replays against the eager outers; at 1,048,576 cells in
+                float64: host set-up by stage, the hierarchy, outers and
+                seconds to a 1e-10 relative residual, the max abs error
+                against the exact series profile, the Mixed variant's
+                energy balance, the fine level's kernel rows;
+ 20. small    - the slip-wall Couette flow cuda against cpu (60 outers), and
+                a restart after ``outerChunk`` replays against the
+                uninterrupted run, bit for bit;
+Kernel rows are timed as graph replays (``replay_ms``).  Then the
+``kernels`` JSON line (with the converge path's launches in the
 ``(converge)`` rows and the suite's in the ``(suite)`` rows, timed at the
-channel's and the card-size prisms' fine levels) and, last, the device
-JSON line.
+channel's and the card-size prisms' fine levels; the ILU sweep and the
+plate's fine level in their own rows) and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -131,6 +160,8 @@ import subprocess
 import sys
 import time
 import warnings
+
+import numpy as np
 
 # the bench configuration (bench.py:44-46): 1024^2 cells in float32
 MAIN_N = 1024
@@ -431,16 +462,35 @@ def time_graph(fns, reps):
     return start.elapsed_time(end) / reps
 
 
+def replay_ms(fns, bound_ms, label, reps=TIMING_REPS):
+    """Device ms per call of a kernels row: the ``reps`` calls as one
+    graph replay between CUDA events (``time_graph``), held to
+    ``bound_ms``, the least time the card can take for the work.  Not
+    torch.profiler's summed kernel time: its sessions on the H100 lose
+    device events (the kernels they record are no multiple of the calls
+    made) and then read too little, below the bound at times.  A replay
+    loses nothing; it counts the gaps between launches, up to a
+    microsecond each.  A replay below the bound fails."""
+    ms = time_graph(fns, reps)
+    if not ms >= bound_ms:
+        raise AssertionError(f"{label}: {ms:.5f} ms is below the bound "
+                             f"{bound_ms:.5f} ms")
+    return ms
+
+
 def csr_copy(offsets, coef, diag):
-    """The same DIA matrix as a torch CSR tensor (for ``library_ms``)."""
+    """The same DIA matrix as a torch CSR tensor (for ``library_ms``);
+    ``diag`` None: the off-diagonal part alone."""
     import torch
 
-    n = diag.shape[0]
-    rows = [torch.arange(n, device=diag.device)]
-    cols = [torch.arange(n, device=diag.device)]
-    vals = [diag]
+    n, dev = coef.shape[1], coef.device
+    rows, cols, vals = [], [], []
+    if diag is not None:
+        rows.append(torch.arange(n, device=dev))
+        cols.append(torch.arange(n, device=dev))
+        vals.append(diag)
     for j, d in enumerate(offsets):
-        i = torch.arange(max(0, -d), min(n, n - d), device=diag.device)
+        i = torch.arange(max(0, -d), min(n, n - d), device=dev)
         rows.append(i)
         cols.append(i + d)
         vals.append(coef[j, i])
@@ -682,10 +732,12 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
 
         kern = [kernel_call(c) for c in sets]
         plain = [plain_call(c) for c in sets]
-        ms = kb.time_device(kern, TIMING_REPS)
-        graph_ms = time_graph(kern, TIMING_REPS)
+        bound_ms, bound_by, nbytes, nops = kb.bound(n, m, len(offsets), mode,
+                                                   item)
+        label = f"dia_stencil {mode}{tag} n={n} m={m} {dtype_name}"
+        ms = replay_ms(kern, bound_ms, label)
         eager_ms = time_events(kern, TIMING_REPS)
-        plain_ms = kb.time_device(plain, TIMING_REPS)
+        plain_ms = replay_ms(plain, bound_ms, f"plain {label}")
         # one PyTorch call computing the same function on a CSR copy of the
         # same matrix (the port never calls it); damped Jacobi has none:
         # x + omega (b - A x) / diag needs a product and two more passes
@@ -707,8 +759,8 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
                         for c in sets]
                     library_note += (
                         f"; the float32 {library_name(mode, m)} at the same "
-                        f"shape (float32, not a bf16 call): device "
-                        f"{kb.time_device(f32, TIMING_REPS):.5f} ms")
+                        f"shape (float32, not a bf16 call): "
+                        f"{replay_ms(f32, bound_ms, label):.5f} ms")
                     del f32
                 torch.cuda.empty_cache()
             if libs is not None:
@@ -719,22 +771,20 @@ def time_modes(tag, n, offsets, cases, launches, errors, dtype_name,
                     raise AssertionError(
                         f"{library_name(mode, m)} disagrees with the plain "
                         f"{mode}: rel err {err:.3e}")
-                library_ms = kb.time_device(libs, TIMING_REPS)
+                library_ms = replay_ms(libs, bound_ms, f"library {label}")
                 library_eager_ms = time_events(libs, TIMING_REPS)
                 del got, want
             del libs
         del sets, kern, plain
-        bound_ms, bound_by, nbytes, nops = kb.bound(n, m, len(offsets), mode,
-                                                   item)
         variant = dk.dispatch(n, dtype)
         log("timing", f"dia_stencil {mode}{tag} ({variant}) n={n} m={m} "
-            f"D={len(offsets)} {dtype_name}: device {ms:.5f} ms (graph "
-            f"replay {graph_ms:.5f}, eager {eager_ms:.5f}), bound "
+            f"D={len(offsets)} {dtype_name}: graph replay {ms:.5f} ms "
+            f"(eager {eager_ms:.5f}), bound "
             f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s; "
             f"{nops} flop at 67 TFLOP/s), {100 * bound_ms / ms:.1f}% of "
-            f"bound; plain device {plain_ms:.5f} ms; "
+            f"bound; plain {plain_ms:.5f} ms; "
             + (f"library: {library_note}" if library_ms is None else
-               f"{library_name(mode, m)} CSR device {library_ms:.5f} ms "
+               f"{library_name(mode, m)} CSR {library_ms:.5f} ms "
                f"(eager {library_eager_ms:.5f})"))
         if not rows:
             continue
@@ -781,11 +831,11 @@ def gather_ell_timing(shape, dtype, device, mode):
 
 
 def level_table(shapes, by_shape, gathers, dtype_name, steps=TIMED_STEPS):
-    """Every smoothed level: Jacobi and residual per launch beside the
-    bound (the variant the dispatch takes) and launches x (time - bound)
-    per step (the counts are over ``steps`` steps or solves); on gather-ELL
-    levels the products' device time, kernel launches per product and
-    products per step."""
+    """Every smoothed level: Jacobi and residual per launch (graph
+    replays) beside the bound (the variant the dispatch takes) and
+    launches x (time - bound) per step (the counts are over ``steps``
+    steps or solves); on gather-ELL levels the products' device time,
+    kernel launches per product and products per step."""
     import torch
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.tools import kernel_bench as kb
@@ -826,12 +876,15 @@ def level_table(shapes, by_shape, gathers, dtype_name, steps=TIMED_STEPS):
                 x, b = kb.random_vectors(n, 1, dtype, device, seed=40 + k)
                 ops.append((coef, diag, x, b))
             omega = 0.7 if mode == "jacobi" else None
-            t = kb.time_device(
+            bnd = kb.bound(n, 1, len(s.offsets), mode, item)[0]
+            # a graph replay (``replay_ms``), not held to the HBM bound: a
+            # middle level's copies can stay in the 50 MB L2
+            t = time_graph(
                 [lambda o=o: dk.dia_stencil(s.offsets, mode, o[0], o[1], o[2],
                                             b=o[3], omega=omega)
                  for o in ops], LEVEL_REPS)
-            bnd = kb.bound(n, 1, len(s.offsets), mode, item)[0]
-            per = by_shape.get((tag, variant, mode, n), 0) / steps
+            per = sum(v for k, v in by_shape.items()
+                      if k[:4] == (tag, variant, mode, n)) / steps
             excess += per * (t - bnd)
             total["ms"] += per * t
             total["bound"] += per * bnd
@@ -1190,8 +1243,8 @@ def converge_phase(device, kernels, result=None):
     per = inner.trips_per_replay
     log("converge", f"dia_stencil launches per inner iteration (the trips "
         f"graph, {per} iterations per replay): {sum(cap[0].values()) / per:g}"
-        " by (type, variant, mode, rows): " + ", ".join(
-            f"{k[0]}/{k[1]}/{k[2]}/{k[3]} {v / per:g}"
+        " by (type, variant, mode, rows, D): " + ", ".join(
+            f"{k[0]}/{k[1]}/{k[2]}/{k[3]}/D{k[4]} {v / per:g}"
             for k, v in sorted(cap[1].items())))
     log("converge", "dia_stencil launches in the converge run: " + "; ".join(
         f"{dk.type_tag(t)} " + ", ".join(f"{m} {v}" for m, v in d.items())
@@ -1606,12 +1659,596 @@ def electrostatics_phase(device, suite, errors, smi):
     return r, fine
 
 
+# ---- 18-20. the linear extras and the boundary physics ----------------------
+
+# phase 18: bench's 1024^2 float32 cavity with the pressure and thermal
+# solves of the golden families ILU0 and SPIKE (cases.cavity_models on one
+# device mesh): FAMILY_OUTERS[family] eager coupled outers after one
+# warm-up outer (a SPIKE outer takes seconds), then one outer as a CUDA
+# graph replay (bit for bit against the eager outer under deterministic
+# algorithms: the condensation's index_add adds with atomics)
+FAMILY_OUTERS = {"ILU0": 2, "SPIKE": 1}
+FAMILY_PROFILED = ("ILU0",)
+FAMILY_PROFILE_REPS = 20
+# cuda against cpu at 64^2 float64 over 10 outers with the inner solves
+# tightened to 1e-10 (cases.tighten_family), held at
+# cases.FAMILY_TIGHT_RTOL
+FAMILY_SLICE_N = 64
+FAMILY_SLICE_OUTERS = 10
+# phase 19: the plate at card size to a 1e-10 relative residual; its max
+# abs error against the exact series profile (K, temperatures of 300-400)
+# and the Mixed variant's energy balance (the heat flows over all groups
+# summed, over the largest)
+PLATE_ATOL = 1e-6
+PLATE_BALANCE = 1e-8
+PLATE_SLICE = (64, 16)
+PLATE_SLICE_RTOL = 1e-8
+# phase 20: the slip-wall Couette flow of tests/test_flow.py:105, its first
+# 60 outers (they move by 6e-13 under a 1e-15 change of the viscosity on
+# the CPU; the slip profile itself takes ~300 outers, held on the CPU by
+# tests/test_torch_bc_extras.py)
+SLIP_OUTERS = 60
+SLIP_RTOL = 1e-8
+
+
+def record_solves(model, key):
+    """Wrap the model's solver ``options[key]``: the iterations of every
+    solve (device tensors) and the first call's (A, b); the step rebuilt."""
+    solver = model.options[key]
+    inner = solver.solve_fn
+    rec = {"its": [], "first": None}
+
+    def solve_fn(A, b, x0):
+        x, st = inner(A, b, x0)
+        rec["its"].append(st.iterations)
+        if rec["first"] is None:
+            rec["first"] = (A, b)
+        return x, st
+
+    solver.solve_fn = solve_fn
+    model._drop_compiled()
+    return rec
+
+
+def count_applies(solver, label, counts):
+    """Wrap the preconditioner of ``solver``: each application counted in
+    ``counts[label]``."""
+    pre = solver.preconditioner
+    setup = pre.precond_setup
+
+    def precond_setup(A):
+        M = setup(A)
+
+        def counted(r):
+            counts[label] = counts.get(label, 0) + 1
+            return M(r)
+        return counted
+
+    pre.precond_setup = precond_setup
+
+
+def family_histories(device):
+    """Per family, the residual histories of 10 coupled outers of the 64^2
+    float64 family cavity with tight inner solves on ``device``."""
+    from fvm_tpu_torch.cases import (cavity_family, coupled_step,
+                                     tighten_family)
+
+    out = {}
+    for family in ("ILU0", "SPIKE"):
+        flow, thermal = cavity_family(FAMILY_SLICE_N, family, device=device,
+                                      dtype="float64")
+        tighten_family(flow, thermal)
+        out[family] = [[float(v) for v in coupled_step(flow, thermal)]
+                       for _ in range(FAMILY_SLICE_OUTERS)]
+    return out
+
+
+def family_slices(device):
+    """cuda against cpu at 64^2 float64, held at FAMILY_TIGHT_RTOL: the
+    CPU runs in a child process on one thread while the card's run here
+    launches its kernels (both are host-bound)."""
+    import os
+    from pathlib import Path
+    from fvm_tpu_torch.cases import FAMILY_TIGHT_RTOL
+
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.family_histories('cpu')))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        cuda = family_histories(device)
+        out, _ = child.communicate(timeout=900)
+    finally:
+        child.kill()
+        child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"family: the CPU run exited "
+                             f"{child.returncode}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    for family, hist in cuda.items():
+        worst = max_rel(hist, cpu[family])
+        log("family", f"{family} {FAMILY_SLICE_N}^2 float64, "
+            f"{FAMILY_SLICE_OUTERS} coupled outers with tight inner solves "
+            f"(1e-10), cuda vs cpu: max rel diff {worst:.3e} (tol "
+            f"{FAMILY_TIGHT_RTOL[family]:g}); last cuda {hist[-1]}")
+        if not worst <= FAMILY_TIGHT_RTOL[family]:
+            raise AssertionError(f"family: {family}: cuda and cpu differ")
+    log("family", f"the {FAMILY_SLICE_N}^2 cuda vs cpu runs in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def hist_rel(h, ref, floor=1e-10):
+    """Largest relative difference of two outer histories above the
+    round-off floor (``floor`` of the first outer's residual: a converged
+    solve's remainder, which each device rounds its own way); inf when
+    their lengths differ."""
+    if len(h) != len(ref):
+        return float("inf")
+    lim = floor * abs(ref[0])
+    return max((abs(a - c) / abs(c) for a, c in zip(h, ref)
+                if abs(c) > lim or abs(a) > lim), default=0.0)
+
+
+def np_finite_list(values):
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def ilu_kernel_row(A2, b2, errors, launches):
+    """The ILU apply on the card against its plain version at full width
+    (max abs err 0, (n,) and (n, 2)), then the sweep shape (residual, D 2,
+    zero diagonal, the real factors) timed: the kernel, its plain
+    version and ``torch.addmv`` on a CSR copy of the triangular part
+    beside the bound.  Returns the ``kernels`` row."""
+    import torch
+    from fvm_tpu_torch.linear.ilu import (PackedFactors, ilu0_apply,
+                                          ilu0_apply_plain, ilu0_factor)
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    l, u, ud = ilu0_factor(A2.dia.offsets, A2.dia_coef, A2.diag)
+    packed = PackedFactors(l, u, ud)
+    worst = 0.0
+    for r in (b2, torch.stack([b2, -0.5 * b2], dim=1)):
+        got = ilu0_apply(l, u, ud, r, 4, packed)
+        want = ilu0_apply_plain(l, u, ud, r, 4)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err == 0.0):
+            raise AssertionError(f"ILU apply: kernel vs plain max abs err "
+                                 f"{err:.3e} (need 0)")
+        worst = max(worst, err)
+    errors["ilu"] = worst
+    n, offs = b2.shape[0], packed.neg
+    log("family", f"ILU(0) apply on the card, n={n}: the kernel path "
+        f"({2 * 4} dia_stencil launches, lower offsets {offs}, upper "
+        f"{packed.pos}) against its plain version on (n,) and (n, 2): max "
+        f"abs err {worst:g} (need 0) ok")
+    sets = []
+    for k in range(TIMING_COPIES):
+        x, b = kb.random_vectors(n, 1, b2.dtype, b2.device, seed=30 + k)
+        sets.append((dk.pack_coef(packed.l), torch.zeros_like(packed.zero),
+                     x, b))
+    kern = [(lambda c=c: dk.dia_stencil(offs, "residual", c[0], c[1], c[2],
+                                        b=c[3])) for c in sets]
+    plain = [(lambda c=c: dk.dia_stencil_plain(offs, "residual", c[0], c[1],
+                                               c[2], b=c[3])) for c in sets]
+    libs = [library_call("residual", csr_copy(offs, c[0], None), c[2], c[3])
+            for c in sets]
+    got, want = libs[0](), plain[0]()
+    lib_err = float((got - want).abs().max()) / float(want.abs().max())
+    if not lib_err <= LIBRARY_RTOL["float32"]:
+        raise AssertionError(f"torch.addmv disagrees with the sweep: "
+                             f"{lib_err:.3e}")
+    # the sweep has no diagonal term: its bound counts neither the zero
+    # diagonal the launch passes nor its product
+    bound_ms, bound_by, nbytes, nops = kb.bound(n, 1, len(offs), "residual",
+                                               b2.element_size(), diag=False)
+    ms = replay_ms(kern, bound_ms, "ILU sweep")
+    eager_ms = time_events(kern, TIMING_REPS)
+    plain_ms = replay_ms(plain, bound_ms, "plain ILU sweep")
+    lib_ms = replay_ms(libs, bound_ms, "torch.addmv ILU sweep")
+    log("timing", f"dia_stencil residual (ILU sweep, D={len(offs)}, zero "
+        f"diagonal) ({dk.dispatch(n, b2.dtype)}) n={n} float32: graph "
+        f"replay {ms:.5f} ms (eager {eager_ms:.5f}), bound {bound_ms:.5f} "
+        f"ms by {bound_by} ({nbytes} B), {100 * bound_ms / ms:.1f}% of bound; "
+        f"plain {plain_ms:.5f} ms; torch.addmv CSR (the triangular "
+        f"part) {lib_ms:.5f} ms")
+    del sets, kern, plain, libs
+    return {"name": "dia_stencil.residual (ILU sweep)", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def family_graph(family, flow, thermal, outer_ms):
+    """One coupled outer of the family cavity as a CUDA graph replay
+    (``cases.coupled_steps``): capture seconds, the residuals against the
+    eager outer from the same state under deterministic algorithms (bit
+    for bit), and the ms of two timed replays."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_step, coupled_steps
+
+    snap = snapshot(flow, thermal)
+    with deterministic():
+        eager = [float(v) for v in coupled_step(flow, thermal)]
+        restore(flow, thermal, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = coupled_steps(flow, thermal, 1)[0].tolist()
+        capture_s = time.perf_counter() - t0
+    runner = flow._runners[("coupled", thermal, 1)]
+    times = []
+    for _ in range(2):
+        restore(flow, thermal, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coupled_steps(flow, thermal, 1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    nodes = sum(runner.captured[0].values())
+    log("family", f"{family}: one outer as a CUDA graph ({nodes} "
+        f"dia_stencil launches captured): captured and replayed in "
+        f"{capture_s:.2f} s; residuals "
+        f"{'bit-identical to' if graph == eager else 'DIFFER from'}"
+        f" the eager outer's; replays " + ", ".join(f"{t:.3f}" for t in times)
+        + f" ms (eager outers {outer_ms:.3f} ms)")
+    if graph != eager:
+        raise AssertionError(f"family: graph {graph} vs eager {eager}")
+    del runner
+    flow._runners.clear()
+    return min(times)
+
+
+def apply_timing(label, M, r):
+    """The graph-replayed ms of one preconditioner application ``M(r)``
+    on the card; logged beside its eager ms and the kernels and device ms
+    the profiler recorded (less what its session lost)."""
+    import torch
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    reps = FAMILY_PROFILE_REPS
+    events = kb._profile(lambda: [M(r) for _ in range(reps)])
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    kernels = sum(e.count for e in events) / reps
+    eager_ms = time_events([lambda: M(r)], reps)
+    graph_ms = time_graph([lambda: M(r)], reps)
+    log("family", f"{label} apply, n={r.shape[0]}: graph-replayed "
+        f"{graph_ms:.4f} ms, eager {eager_ms:.4f} ms; the profiler recorded "
+        f"{kernels:g} kernels, {dev_ms:.4f} ms of device time")
+    torch.cuda.synchronize()
+    return graph_ms
+
+
+def families_phase(device, errors, smi):
+    """18: bench's 1024^2 float32 cavity with the ILU0 and SPIKE families
+    (eager), the ILU apply's kernel path against its plain version at full
+    width, the apply timings, and cuda against cpu at 64^2.  Returns the
+    ILU sweep's ``kernels`` row."""
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.cases import coupled_step
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    t0 = time.perf_counter()
+    dmesh = build_device_mesh(quad_2d(MAIN_N, MAIN_N), dtype=MAIN_DTYPE,
+                              device=device)
+    torch.cuda.synchronize()
+    log("family", f"{MAIN_N}^2 {MAIN_DTYPE} device mesh (both families) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    row = None
+    for family in ("ILU0", "SPIKE"):
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        flow, thermal = cases.cavity_models(
+            dmesh, solver=functools.partial(cases.family_solver, family))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        outers = FAMILY_OUTERS[family]
+        prec = record_solves(flow, "pressureLinearSolver")
+        trec = record_solves(thermal, "linearSolver")
+        applies = {}
+        count_applies(flow.options["pressureLinearSolver"], "pressure",
+                      applies)
+        count_applies(thermal.options["linearSolver"], "thermal", applies)
+        t0 = time.perf_counter()
+        coupled_step(flow, thermal)  # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        dk.reset_launches()
+        applies.clear()
+        n0p, n0t = len(prec["its"]), len(trec["its"])
+        t0 = time.perf_counter()
+        for _ in range(outers):
+            res = coupled_step(flow, thermal)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        outer_ms = 1e3 * dt / outers
+        per_outer = sum(applies.values()) / outers
+        by_shape = dict(dk.dia_stencil.shapes)
+        launches = dict(dk.dia_stencil.launches)
+        pits = [int(i) for i in prec["its"][n0p:]]
+        tits = [int(i) for i in trec["its"][n0t:]]
+        resids = [float(v) for v in res]
+        if not np_finite_list(resids) or not bool(
+                torch.isfinite(flow.state["velocity"]).all()):
+            raise AssertionError(f"family: {family}: non-finite {resids}")
+        log("family", f"{family} {MAIN_N}^2 {MAIN_DTYPE}: models set up "
+            f"{setup_s:.2f} s, warm-up outer {warm_s:.2f} s; "
+            f"{outers} eager outer(s) {outer_ms:.3f} ms each "
+            f"({MAIN_N * MAIN_N / outer_ms * 1e3:.6e} cells/s) [{smi}]; "
+            f"pressure iterations per outer {pits}, thermal {tits}; "
+            f"preconditioner applications per outer " + ", ".join(
+                f"{k} {v / outers:g}" for k, v in applies.items())
+            + f"; final residuals {resids}")
+        log("family", f"{family}: dia_stencil launches per outer by mode "
+            + ", ".join(f"{m} {v / outers:g}"
+                        for m, v in launches.items())
+            + "; by (type, variant, mode, rows, D): " + ", ".join(
+                f"{k[0]}/{k[1]}/{k[2]}/{k[3]}/D{k[4]} {v / outers:g}"
+                for k, v in sorted(by_shape.items())))
+        sweeps = sum(v for k, v in by_shape.items()
+                     if k[2] == "residual" and k[4] == 2)
+        if family == "ILU0" and not sweeps:
+            raise AssertionError("family: the ILU sweeps never launched "
+                                 "dia_stencil")
+        # one outer profiled (ILU0; a profiled SPIKE outer, ~300,000
+        # kernels, takes the profiler minutes): where the device time
+        # goes, as far as the session recorded it (the idle share is read
+        # against the graph replay below)
+        if family in FAMILY_PROFILED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                coupled_step(flow, thermal)
+                torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            log("family", f"{family}: one profiled outer ({prof_ms:.3f} "
+                f"ms): {sum(e.count for e in rows)} kernels and {busy:.3f} "
+                f"ms of device time recorded; the largest:")
+            top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                          for e in rows), reverse=True)[:6]
+            for ms, n, key in top:
+                log("family", f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
+        # the applications on the first recorded pressure system
+        A, b = prec["first"]
+        A2, b2, _ = A.condense(b)
+        A2 = A2.prepare()
+        pre = flow.options["pressureLinearSolver"].preconditioner
+        M = type(pre)().precond_setup(A2)
+        apply_ms = apply_timing(f"{family} pressure preconditioner", M, b2)
+        if family == "ILU0":
+            row = ilu_kernel_row(A2, b2, errors, sweeps)
+        outer_replay_ms = family_graph(family, flow, thermal, outer_ms)
+        # the applications' share of a graph-replayed outer, which holds
+        # the device's work with next to no host gaps
+        pre_ms = apply_ms * per_outer
+        log("family", f"{family}: the applications take {pre_ms:.3f} ms "
+            f"per outer ({per_outer:g} applications x {apply_ms:.4f} "
+            f"ms replayed), {100 * pre_ms / outer_replay_ms:.1f}% of a "
+            f"graph-replayed outer; eager outers "
+            f"{100 - 100 * outer_replay_ms / outer_ms:.1f}% idle against "
+            f"the replay")
+        del flow, thermal, prec, trec, A, b, A2, b2, M
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("family", f"{family}: {time.perf_counter() - t_phase:.1f} s")
+    del dmesh
+    family_slices(device)
+    return row
+
+
+def plate_phase(device, errors, smi):
+    """19: the two-material plate at card size, float64: host set-up by
+    stage, outers and seconds to 1e-10, the error against the exact series
+    profile, the Mixed variant's energy balance, cuda against cpu at 64 x
+    16 and the closure inside an ``outerChunk`` replay.  Returns the
+    ``kernels`` rows of the plate's fine level."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops import ell
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    # cuda against cpu first, small
+    nx, ny = PLATE_SLICE
+    for walls in ("periodic", "mixed"):
+        hs, Ts = [], []
+        for dev in (device, "cpu"):
+            t, _ = cases.two_material_plate(device=dev, nx=nx, ny=ny,
+                                            walls=walls)
+            out = cases.plate_run(t)
+            hs.append(out["history"])
+            Ts.append(t.getTemperature())
+        worst = hist_rel(hs[0], hs[1])
+        terr = float(np.abs(Ts[0] - Ts[1]).max() / np.abs(Ts[1]).max())
+        log("plate", f"{nx} x {ny} {walls}: cuda vs cpu outers {len(hs[0])}"
+            f" / {len(hs[1])}, history max rel diff {worst:.3e}, "
+            f"temperatures {terr:.3e} (tol {PLATE_SLICE_RTOL:g})")
+        if not (worst <= PLATE_SLICE_RTOL and terr <= PLATE_SLICE_RTOL):
+            raise AssertionError(f"plate: {walls}: cuda and cpu differ")
+    # the closure's derivatives inside a graph replay (deterministic: the
+    # fallback entries' index_add adds with atomics)
+    runs = []
+    for chunk in (0, 3):
+        t, _ = cases.two_material_plate(device=device, nx=nx, ny=ny)
+        t.options["relativeTolerance"] = 0.0
+        t.options["absoluteTolerance"] = 0.0
+        t.options["outerChunk"] = chunk
+        with deterministic():
+            runs.append(([float(h[1]) for h in t.advance(6)],
+                         t.getTemperature()))
+    same = runs[0][0] == runs[1][0] and np.array_equal(runs[0][1],
+                                                       runs[1][1])
+    log("plate", f"the contact-resistance closure inside outerChunk(3) "
+        f"graph replays: {'bit-identical to' if same else 'DIFFERS from'} "
+        f"the eager outers over 6 outers (deterministic algorithms)")
+    if not same:
+        raise AssertionError(f"plate: replay {runs[1][0]} vs eager "
+                             f"{runs[0][0]}")
+
+    rows = []
+    for walls in ("periodic", "mixed"):
+        t, secs = cases.two_material_plate(device=device, walls=walls)
+        dm = t.mesh
+        amg = t.options["linearSolver"].preconditioner
+        shapes = kb.level_shapes(amg, dm)
+        log("plate", f"{walls}: quad_2d({cases.PLATE_NX}, {cases.PLATE_NY})"
+            f" float64, {dm.n_interior_cells} cells, {dm.n_cells} rows; "
+            f"host seconds " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in secs.items())
+            + f"; total {sum(secs.values()):.3f}; hierarchy "
+            f"{describe(shapes)}")
+        fine = shapes[0]
+        if walls == "periodic" and fine.offsets is not None:
+            kernel_vs_plain("plate fine level", fine.rows, fine.offsets,
+                            device, errors, nrhs=(1,), dia=fine.dia,
+                            dtypes=("float64",))
+        dk.reset_launches()
+        ell.gather_ell_ops.clear()
+        out = cases.plate_run(t)
+        counts = dk.type_launches(torch.float64)
+        gathers = sum(ell.gather_ell_ops.values())
+        log("plate", f"{walls}: {out['outers']} outers to rel "
+            f"{out['rel']:.3e} (target {cases.PLATE_RTOL:g}) in "
+            f"{out['seconds']:.3f} s [{smi}]; history "
+            + ", ".join(f"{v:.6e}" for v in out["history"])
+            + "; f64 dia_stencil launches " + ", ".join(
+                f"{m} {v}" for m, v in counts.items())
+            + f"; gather-ELL products {gathers}")
+        flows = ", ".join(f"{k} {v:.9e}" for k, v in out["heat_flux"].items())
+        log("plate", f"{walls}: heat flows into the domain: {flows}; energy "
+            f"balance {out['balance_rel']:.3e} of the largest (tol "
+            f"{PLATE_BALANCE:g})")
+        if not out["converged"] or out["balance_rel"] > PLATE_BALANCE:
+            raise AssertionError(f"plate: {walls}: {out}")
+        if walls == "periodic":
+            err = float(np.abs(t.getTemperature()
+                               - cases.plate_exact(t)).max())
+            log("plate", f"periodic: max abs error against the exact series "
+                f"profile {err:.3e} K (tol {PLATE_ATOL:g})")
+            if not err <= PLATE_ATOL:
+                raise AssertionError("plate: the profile is off")
+            A, r = t._linearize(dm, t.params, t.state, t._resolve_bcvals())
+            solver = t.options["linearSolver"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve_fn(A, r, torch.zeros_like(r))
+            torch.cuda.synchronize()
+            profile_run("plate", "one solve at the converged state",
+                        lambda: solver.solve_fn(A, r, torch.zeros_like(r)),
+                        1e3 * (time.perf_counter() - t0))
+            if fine.offsets is not None:
+                rows = time_modes(
+                    " (f64, plate)", fine.rows, fine.offsets,
+                    (("mv", 1), ("residual", 1), ("jacobi", 1)), counts,
+                    errors, "float64")
+            del A, r
+        del t, dm, amg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def small_checks_phase(device):
+    """20: the slip-wall Couette flow cuda against cpu, and a restart after
+    an ``outerChunk`` replay against the uninterrupted run."""
+    import torch
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models import FlowModel, ThermalModel
+
+    hs, Vs = [], []
+    for dev in (device, "cpu"):
+        m = FlowModel(build_device_mesh(quad_2d(4, 16), dtype="float64",
+                                        device=dev))
+        m.options["verbose"] = False
+        m.vc["viscosity"] = 1.0
+        m.options["molecularWeight"] = 8314.472
+        m.options["operatingTemperature"] = 2.0 / np.pi
+        m.options["operatingPressure"] = 10.0
+        for side, u in (("bottom", 0.0), ("top", 1.0)):
+            m.bc[side].bc_type = "SlipJump"
+            m.bc[side]["specifiedXVelocity"] = u
+            m.bc[side]["accomodationCoefficient"] = 1.0
+        m.bc["left"].bc_type = "PressureBoundary"
+        m.bc["right"].bc_type = "PressureBoundary"
+        m.init()
+        hs.append([list(map(float, h[1:])) for h in m.advance(SLIP_OUTERS)])
+        Vs.append(m.getVelocity())
+    worst = max(hist_rel([h[c] for h in hs[0]], [h[c] for h in hs[1]])
+                for c in (0, 1))
+    verr = float(np.abs(Vs[0] - Vs[1]).max())
+    log("small", f"SlipJump Couette 4 x 16, {len(hs[0])} outers: cuda vs "
+        f"cpu histories max rel diff {worst:.3e}, velocities max abs diff "
+        f"{verr:.3e} (tol {SLIP_RTOL:g})")
+    if not (worst <= SLIP_RTOL and verr <= SLIP_RTOL):
+        raise AssertionError("small: the slip-wall Couette flow is off")
+
+    def thermal():
+        t = ThermalModel(build_device_mesh(quad_2d(32, 32), dtype="float64",
+                                           device=device))
+        t.options["verbose"] = False
+        t.options["outerChunk"] = 3
+        t.options["relativeTolerance"] = 0.0
+        t.options["urf"] = 0.5
+        t.bc["left"].bc_type = "SpecifiedTemperature"
+        t.bc["left"]["specifiedTemperature"] = 400.0
+        t.bc["right"].bc_type = "Mixed"
+        t.bc["right"]["heatTransferCoefficient"] = 4.0
+        t.bc["right"]["surfaceEmissivity"] = 0.6
+        t.bc["bottom"].bc_type = "Symmetry"
+        t.bc["top"].bc_type = "Symmetry"
+        t.init()
+        return t
+
+    with deterministic():
+        ref = thermal()
+        ref.advance(3)
+        h_ref = [float(h[1]) for h in ref.advance(6)]
+        t = thermal()
+        t.advance(3)
+        data = t.getPersistenceData()
+        t.advance(3)
+        t.restart(data)
+        h = [float(v[1]) for v in t.advance(6)]
+    same = h == h_ref and np.array_equal(t.getTemperature(),
+                                         ref.getTemperature())
+    runner = t._runners[("chunk", 3)]
+    log("small", f"persistence: restart after outerChunk(3) replays "
+        f"({runner.replays} replays of one graph): "
+        f"{'bit-identical to' if same else 'DIFFERS from'} the uninterrupted "
+        f"run over the next 6 outers")
+    if not (same and runner.graph is not None):
+        raise AssertionError(f"small: restart {h} vs {h_ref}")
+    torch.cuda.synchronize()
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
             "gather-ELL" if s.offsets is None else
             f"DIA D={len(s.offsets)} fb={s.fallback}")
         for i, s in enumerate(shapes))
+
+
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -1640,11 +2277,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log("device", f"{kind}, {count} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     print(smi, flush=True)
@@ -1851,11 +2484,30 @@ def main() -> int:
         {m: suite.get((dk.type_tag(torch.float64), m), 0) for m in dk.MODES},
         errors_suite, "float64")
 
-    log("done", f"phases 1-17 in {time.time() - t_start:.1f} s")
+    # ---- 18-20. the linear extras and the boundary physics ---------------
+    t18 = time.time()
+    kernels.extend(extras_phases(device, smi))
+    log("done", f"phases 18-20 in {time.time() - t18:.1f} s; phases 1-20 in "
+        f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0
+
+
+def extras_phases(device, smi, phases=(18, 19, 20)):
+    """Phases 18-20 (those in ``phases``), each timed; returns their
+    ``kernels`` rows."""
+    errors, rows = {}, []
+    for k, phase in ((18, lambda: rows.append(
+            families_phase(device, errors, smi))),
+            (19, lambda: rows.extend(plate_phase(device, errors, smi))),
+            (20, lambda: small_checks_phase(device))):
+        if k in phases:
+            t0 = time.time()
+            phase()
+            log("done", f"phase {k} in {time.time() - t0:.1f} s")
+    return rows
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ act in two phases on static group slices:
 
 1. patch the per-face flux linearization of the group (Neumann, symmetry);
 2. patch the ghost-cell rows after assembly (Dirichlet identity rows,
-   extrapolation rows, Robin sink terms).
+   extrapolation rows, implicit periodic rows, Robin sink terms).
 
 Sign conventions follow ops.assembly: A dx = r with A = -dr/dx.  All
 updates are functional: inputs are not modified.
@@ -25,11 +25,14 @@ def ghost_owner_cells(mesh):
 
 
 def extend_to_ghosts(mesh, x):
-    """Copy owner-cell values into the ghost-cell slots (zero gradient)."""
+    """Copy owner-cell values into the ghost-cell slots (zero gradient);
+    periodic ghosts mirror their wrapped partner owner instead."""
     gh = slice(mesh.n_interior_cells,
                mesh.n_interior_cells + mesh.n_boundary_faces)
     x = x.clone()
     x[gh] = x[ghost_owner_cells(mesh)]
+    if mesh.periodic_ghost is not None:
+        x[mesh.periodic_ghost] = x[mesh.periodic_src]
     return x
 
 
@@ -84,6 +87,37 @@ def extrapolation_rows(mesh, A, r, gc: slice, phi, valid=None, scale=None):
         resid = torch.where(valid, resid, 0.0)
     r = r.clone()
     r[gc] = resid
+    return A.replace(diag=diag, off=off), r
+
+
+def periodic_rows(mesh, A, r, gc: slice, phi, psrc, valid=None,
+                  scale=None):
+    """IMPLICIT periodic ghost rows: scale*(dx_g - dx_partner) =
+    scale*(phi_partner - phi_g) (``fvm_tpu/core/bcs.py:124-156``).  The
+    partner-owner coupling is the extra ELL slot (slot 1) that
+    ``build_device_mesh`` gives every periodic ghost, so the wrap takes
+    part in the linear solve like an interior coupling (the reference
+    treats periodic pairs as ordinary implicit coupling, Mesh.h:259-265).
+    ``psrc``: the partner owner of each ghost of the group
+    (``Model._periodic_group_src``)."""
+    s = _scale(scale)
+    diag = A.diag.clone()
+    diag[gc] = s
+    off = A.off.clone()
+    off[:, gc] = 0.0
+    # padded group slots (``valid`` False) get no partner coupling: their
+    # slot-1 neighbour is the row itself
+    count = gc.stop - gc.start
+    soff = (torch.full((count,), s, dtype=off.dtype, device=off.device)
+            if scale is None else torch.broadcast_to(s, (count,)))
+    if valid is not None:
+        soff = torch.where(valid, soff, 0.0)
+    off[1, gc] = -soff
+    resid = (phi[psrc] - phi[gc]) * s
+    if valid is not None:
+        resid = torch.where(valid, resid, 0.0)
+    r = r.clone()
+    r[gc] = resid if r.ndim == 1 else torch.broadcast_to(resid, r[gc].shape)
     return A.replace(diag=diag, off=off), r
 
 

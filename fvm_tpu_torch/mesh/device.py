@@ -11,6 +11,13 @@ so assembled matrices compare entry by entry:
 * cell->face tables SLOT-LEADING (K, n): ``cf_face``, ``cf_is_owner``,
   ``cf_mask``, ``cf_nbr``.
 
+Periodic pairs (``Mesh.make_periodic``) reposition each paired ghost at
+its wrapped partner owner and give the ghost row one extra ELL slot
+coupling it to that owner; double-shell interfaces (``Mesh.make_interface``)
+give each shell-ghost row two extra slots, [partner ghost, partner owner]
+at slots 1 and 2, which ``core.interfaces`` relies on.  Both as the JAX
+package builds them (``fvm_tpu/mesh/device.py:280-294, 440-556``).
+
 The JAX package's shift-gather fabric (``MeshGathers``,
 ``PlaneMajorGathers``, ``ShiftGather``, ``dia_gather_slots``) exists
 because the TPU has no hardware gather; a GPU has one, so ``take_owner``,
@@ -76,6 +83,13 @@ class DeviceMesh:
     host: HostMeshData | None = None
     # True when every interior face's non-orthogonal remainder vanishes
     orthogonal: bool = False
+    # periodic pairs: each paired ghost cell and the partner owner cell
+    # whose value it mirrors (int64 (np,) tensors), or None
+    periodic_ghost: torch.Tensor | None = None
+    periodic_src: torch.Tensor | None = None
+    # double-shell interfaces: ((name, left group name, right group name),
+    # ...); the i-th face of the L group pairs with the i-th of the R group
+    interfaces: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -103,6 +117,10 @@ class DeviceMesh:
     def n_boundary_faces(self) -> int:
         return self.n_faces - self.n_interior_faces
 
+    @property
+    def interior_faces(self) -> slice:
+        return slice(0, self.n_interior_faces)
+
     def group_by_name(self, name: str):
         for g in self.groups:
             if g[1] == name:
@@ -123,6 +141,13 @@ class DeviceMesh:
     def host_cf(self):
         """(cf_nbr, cf_mask) as HOST numpy ROW-LEADING (n, K) arrays."""
         return self.host.cf_nbr, self.host.cf_mask
+
+    def interface(self, name: str):
+        """(left group, right group) tuples of a double-shell interface."""
+        for nm, ln, rn in self.interfaces:
+            if nm == name:
+                return self.group_by_name(ln), self.group_by_name(rn)
+        raise KeyError(name)
 
 
 def _cf_tables(owner, nbr, face_valid, n_cells, K):
@@ -170,8 +195,14 @@ def assemble_device_mesh(
     dtype=None,
     device=None,
     face_valid: np.ndarray | None = None,
+    extra_adj: tuple | None = None,
+    interfaces: tuple = (),
 ) -> DeviceMesh:
-    """Low-level device-mesh assembler from flat host arrays."""
+    """Low-level device-mesh assembler from flat host arrays.
+
+    ``extra_adj`` (rows, cols): couplings that are no face (the periodic
+    and shell-ghost rows), spliced into the free tail slots of their rows
+    in the given order."""
     from ..ops.dia import DIAInfo
 
     dev = resolve_device(device)
@@ -185,10 +216,29 @@ def assemble_device_mesh(
     counts = np.bincount(owner[face_valid], minlength=n_cells) + np.bincount(
         nbr[face_valid & (nbr != owner)], minlength=n_cells
     )
-    K = int(counts.max()) if len(counts) else 1
+    extra_need = np.zeros(n_cells, dtype=np.int64)
+    if extra_adj is not None:
+        extra_need = np.bincount(extra_adj[0], minlength=n_cells)
+    K = int((counts + extra_need).max()) if len(counts) else 1
     cf_face, cf_mask, cf_is_owner, cf_nbr = _cf_tables(
         owner, nbr, face_valid, n_cells, K
     )
+    if extra_adj is not None:
+        # the relative order within a row is kept, so the interface rows
+        # find [partner ghost, partner owner] at slots 1 and 2
+        erows = np.asarray(extra_adj[0], dtype=np.int64)
+        ecols = np.asarray(extra_adj[1], dtype=np.int64)
+        order2 = np.argsort(erows, kind="stable")
+        er, ec = erows[order2], ecols[order2]
+        ptr2 = np.zeros(n_cells + 1, dtype=np.int64)
+        np.cumsum(extra_need, out=ptr2[1:])
+        slot2 = np.arange(len(er)) - ptr2[er] + counts[er]
+        cf_mask[er, slot2] = True
+        cf_nbr[er, slot2] = ec
+        # geometry gathers for these slots read the row's own face; the
+        # assembled values are overwritten by the BC and interface rows
+        cf_face[er, slot2] = cf_face[er, 0]
+        cf_is_owner[er, slot2] = cf_is_owner[er, 0]
     host_data = HostMeshData(
         np.asarray(cell_centroid, dtype=np.float64),
         np.asarray(cf_nbr, dtype=np.int32),
@@ -258,6 +308,7 @@ def assemble_device_mesh(
         dia=dia,
         host=host_data,
         orthogonal=orthogonal,
+        interfaces=tuple(interfaces),
     )
 
 
@@ -294,6 +345,25 @@ def build_device_mesh(
     nc = mesh.n_cells
     nf = mesh.n_faces
     face_valid = None
+
+    periodic_ghost = periodic_src = None
+    pairs = getattr(mesh, "periodic_pairs", None)
+    if pairs:
+        # each periodic ghost sits at the wrapped partner-owner location,
+        # so face_ds, e_over_d, the LS stencils and the interpolation
+        # weights wrap
+        ccn = ccn.copy()
+        pf = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        fa_, fb_ = pf[:, 0], pf[:, 1]
+        ga_, gb_ = fc[fa_, 1], fc[fb_, 1]
+        oa_, ob_ = fc[fa_, 0], fc[fb_, 0]
+        # in pair order, as the JAX package's loop (a later pair that
+        # shares a ghost overwrites an earlier one)
+        for i in range(len(pf)):
+            ccn[ga_[i]] = ccn[ob_[i]] + (fcn[fa_[i]] - fcn[fb_[i]])
+            ccn[gb_[i]] = ccn[oa_[i]] + (fcn[fb_[i]] - fcn[fa_[i]])
+        periodic_ghost = np.stack([ga_, gb_], axis=1).reshape(-1)
+        periodic_src = np.stack([ob_, oa_], axis=1).reshape(-1)
 
     if n_int_c > 0:
         # global slot stride = max faces per interior cell
@@ -342,8 +412,37 @@ def build_device_mesh(
         nc = nc + 1
         nf = nf_new
 
-    return assemble_device_mesh(
+    iface_meta = tuple(getattr(mesh, "interfaces", ()))
+    extra_rows: list = []
+    extra_cols: list = []
+    if periodic_ghost is not None:
+        # implicit periodic rows: slot 1 of each periodic ghost couples it
+        # to the wrapped partner owner (core.bcs.periodic_rows)
+        extra_rows.append(periodic_ghost)
+        extra_cols.append(periodic_src)
+    if iface_meta:
+        # shell-ghost couplings in the final face numbering, per row in the
+        # order [partner ghost, partner owner]
+        by_name = {g[1]: g for g in groups}
+        for _, ln, rn in iface_meta:
+            gL, gR = by_name[ln], by_name[rn]
+            fL = np.arange(gL[3], gL[3] + gL[4])
+            fR = np.arange(gR[3], gR[3] + gR[4])
+            ghL = n_int_c + (fL - n_int_f)
+            ghR = n_int_c + (fR - n_int_f)
+            extra_rows += [ghL, ghR, ghL, ghR]
+            extra_cols += [ghR, ghL, fc[fR, 0], fc[fL, 0]]
+    extra_adj = None
+    if extra_rows:
+        extra_adj = (np.concatenate(extra_rows), np.concatenate(extra_cols))
+
+    dm = assemble_device_mesh(
         mesh.dim, fc, tuple(groups), n_int_c, n_int_f, nc,
         fa, fam, fcn, ccn, cv,
         dtype=dtype, device=dev, face_valid=face_valid,
+        extra_adj=extra_adj, interfaces=iface_meta,
     )
+    if periodic_ghost is not None:
+        dm.periodic_ghost = torch.from_numpy(periodic_ghost).to(dev)
+        dm.periodic_src = torch.from_numpy(periodic_src).to(dev)
+    return dm

@@ -2,7 +2,9 @@
 
 The reference's ``Model`` (Model.h:13-26) plus the conventions all of
 its models share: per-boundary BC maps keyed by group name and ident, a VC
-dict, a ModelOptions dict, ``init()`` / ``advance(n)``.
+dict, a ModelOptions dict, ``init()`` / ``advance(n)``, double-shell
+interface closures (``interface``) and persistence
+(``getPersistenceData`` / ``restart``).
 
 All mutable state lives in ``self.state`` and ``self.params``, plain dicts
 of tensors on the mesh's device (the JAX package's pytrees).  ``advance``
@@ -42,6 +44,17 @@ class Model:
             bc = self._make_bc()
             self.bc[g[1]] = bc
             self.bc[g[0]] = bc
+        # double-shell interface closures (Mesh.make_interface): per
+        # interface name an options dict (core/interfaces.py), e.g.
+        # {"type": "jump", "A_coeff": a, "B_coeff": b}; an absent entry is
+        # the continuous interface (A = 1, B = 0)
+        self.interface: dict = {}
+        ifaces = getattr(mesh, "interfaces", ())
+        if ifaces and not getattr(self, "_supports_interfaces", False):
+            raise ConfigError(
+                f"{self.name}: mesh has double-shell interfaces "
+                f"({[i[0] for i in ifaces]}) but this model does not "
+                "support them")
         self._initialized = False
         # chunk (and coupled-loop) runners, dropped by init()
         self._runners: dict = {}
@@ -279,9 +292,30 @@ class Model:
                 break
         return hist
 
+    def _periodic_group_src(self, g):
+        """The partner owner cell of each ghost of a 'Periodic' group."""
+        mesh = self.mesh
+        if mesh.periodic_ghost is None:
+            raise ConfigError(
+                f"group {g[1]!r}: bc_type 'Periodic' needs "
+                "mesh.make_periodic() before build_device_mesh()")
+        lut = dict(zip(mesh.periodic_ghost.tolist(),
+                       mesh.periodic_src.tolist()))
+        gc = mesh.ghost_cells_of_group(g)
+        try:
+            src = [lut[c] for c in range(gc.start, gc.stop)]
+        except KeyError as e:
+            raise ConfigError(
+                f"group {g[1]!r}: not all faces are periodic-paired") from e
+        return torch.tensor(src, dtype=torch.int64, device=mesh.device)
+
     def _group_bcs(self):
-        """Yield (group_tuple, bc) for each boundary group."""
+        """Yield (group_tuple, bc) for each boundary group; double-shell
+        interface groups are skipped (their ghost rows carry the balance
+        and closure equations of core/interfaces.py, not BCs)."""
         for g in self.mesh.boundary_groups():
+            if g[2] == "interface":
+                continue
             bc = self.bc[g[1]]
             if bc.bc_type is None:
                 raise ConfigError(
@@ -297,6 +331,23 @@ class Model:
     def updateTime(self):
         """Shift time levels (reference: <Model>_impl updateTime)."""
         raise NotImplementedError(f"{self.name} is not transient")
+
+    # --- persistence (reference: Model.h:23-26) ---------------------------
+
+    def getPersistenceData(self) -> dict:
+        """The state as host numpy arrays."""
+        return {k: v.detach().cpu().numpy() for k, v in self.state.items()}
+
+    def restart(self, data: dict) -> None:
+        """Load the entries of ``data`` that the state has, each as a new
+        tensor of the state's type on its device.  A captured chunk runner
+        copies the state into its graph's buffers on every call
+        (``models/chunk.Runner``), so the next replay starts from it."""
+        for k, v in data.items():
+            if k in self.state:
+                old = self.state[k]
+                self.state[k] = torch.as_tensor(v, dtype=old.dtype).to(
+                    old.device, copy=True)
 
 
 class ResidualHistory(list):

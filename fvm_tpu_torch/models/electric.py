@@ -9,10 +9,11 @@ linearize-solve-update step per outer iteration; ``outerChunk`` runs the
 chunked loop (a CUDA graph replay on a CUDA mesh).
 
 BC types: 'SpecifiedPotential', 'SpecifiedCharge' (surface charge density
--> flux) and 'Symmetry'; the mask form of the immersed boundary.  Charge
-transport, injection, trapping, Poole-Frenkel emission and trap-band
-tunneling (ROADMAP queue 1 item 6), dielectric double-shell interfaces
-(item 4), the stencil form of the immersed boundary (item 9) and tangents
+-> flux) and 'Symmetry'; the mask form of the immersed boundary; double-
+shell interfaces in the potential solve, the dielectric layer
+(LinearizeDielectric.h:102) among them.  Charge transport, injection,
+trapping, Poole-Frenkel emission and trap-band tunneling (ROADMAP queue 1
+item 6), the stencil form of the immersed boundary (item 9) and tangents
 (item 5) are not ported yet: their options raise ``ConfigError``.
 """
 
@@ -23,6 +24,7 @@ import weakref
 import torch
 
 from ..core import bcs as bck
+from ..core import interfaces as ifc
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError
 from ..linear import AMG, BiCGStab
@@ -83,6 +85,7 @@ _TRANSPORT_OPTIONS = ("chargetransport_enable", "injection_enable",
 
 
 class ElectricModel(Model):
+    _supports_interfaces = True
     name = "ElectricModel"
 
     def __init__(self, mesh):
@@ -180,9 +183,34 @@ class ElectricModel(Model):
             else:
                 A, r = bck.extrapolation_rows(mesh, A, r, gc, phi, valid,
                                               scale)
+        if mesh.interfaces:
+            A, r = ifc.apply_model_interfaces(
+                mesh, self._interface_cfg(), A, r, phi, flux, eps_f)
         A, r = self._apply_ib(mesh, params, A, r, phi)
         A, r = assembly.identity_unowned_rows(mesh, A, r)
         return A, r
+
+    def _interface_cfg(self) -> dict:
+        """``self.interface`` with each dielectric shell (type
+        "dielectric": a thin layer of ``thickness`` t and ``constant``
+        eps_d between the two shell potentials, with an optional layer
+        surface ``charge``) written as the flux closure F_R = eps_d / t
+        (phi_R - phi_L) - q t / 2 (LinearizeDielectric.h:102); plain jump
+        and flux entries pass through."""
+        cfg = {}
+        for nm, _, _ in self.mesh.interfaces:
+            c = dict(self.interface.get(nm, {}))
+            if c.get("type") == "dielectric":
+                epsd = float(c["constant"])
+                t_d = float(c["thickness"])
+                q_l = float(c.get("charge", 0.0))
+
+                def fn(pl, pr, epsd=epsd, t_d=t_d, q_l=q_l):
+                    return epsd / t_d * (pr - pl) - 0.5 * q_l * t_d
+
+                c = {"type": "flux", "flux_fn": fn}
+            cfg[nm] = c
+        return cfg
 
     @staticmethod
     def _field(mesh, params, phi):

@@ -19,13 +19,14 @@ Ghost values of V and p are refreshed explicitly from the BCs each outer
 iteration, and every ghost row of the linear systems is an identity.
 
 Ported so far: SIMPLE and SIMPLEC with ``nPressureCorrectors``, the
-convection schemes, BDF transient terms, BCs 'NoSlipWall',
-'VelocityBoundary', 'PressureBoundary' and 'Symmetry', the coupled
+convection schemes, BDF transient terms, BCs 'NoSlipWall', 'SlipJump'
+(Maxwell first-order slip), 'VelocityBoundary', 'PressureBoundary' and
+'Symmetry', the coupled
 pressure-velocity step (``advanceCoupled``), Anderson acceleration and the
 JFNK Newton endgame (``advanceNewton``), the mask form of the immersed
 boundary in the SIMPLE step (as in the JAX package, not in
 ``advanceCoupled`` or the Newton residual) and the force and flux
-integrals.  'SlipJump', the stencil form of the immersed boundary, the FMG
+integrals.  The stencil form of the immersed boundary, the FMG
 prolongation, tangents and adjoints come later.
 """
 
@@ -59,6 +60,7 @@ from .newton import NewtonInner
 class FlowBC(BoundaryCondition):
     _allowed_types = (
         "NoSlipWall",
+        "SlipJump",
         "VelocityBoundary",
         "PressureBoundary",
         "Symmetry",
@@ -68,6 +70,7 @@ class FlowBC(BoundaryCondition):
         "specifiedYVelocity": 0.0,
         "specifiedZVelocity": 0.0,
         "specifiedPressure": 0.0,
+        "accomodationCoefficient": 1.0,
     }
 
 
@@ -101,8 +104,8 @@ class FlowModelOptions(ModelOptions):
         "convectionScheme": "upwind",
         "nonOrthogonalCorrection": True,
         "momentumTolerance": 1e-4,
-        # Maxwell slip-jump wall constants (the 'SlipJump' BC, not ported
-        # yet, reads them)
+        # Maxwell slip-jump wall constants (FlowModelSlipJump.h: lambda =
+        # mu/p sqrt(pi R T/2), R = 8314.472/molWt)
         "operatingPressure": 101325.0,
         "operatingTemperature": 300.0,
         "molecularWeight": 28.966,
@@ -276,6 +279,8 @@ class FlowModel(Model):
             t = bc.bc_type
             if t in ("NoSlipWall", "VelocityBoundary"):
                 V[gc] = self._bc_velocity(mesh, bcvals, g)
+            elif t == "SlipJump":
+                V[gc] = self._slip_velocity(mesh, params, bcvals, g, V)
             elif t == "Symmetry":
                 nhat = self._unit_normals(mesh, sl)
                 Vo = V[mesh.face_cell0[sl]]
@@ -285,6 +290,29 @@ class FlowModel(Model):
                 p[gc] = bcvals[f"{g[1]}:specifiedPressure"]
         return dict(state, velocity=V, pressure=p)
 
+    def _slip_velocity(self, mesh, params, bcvals, g, V):
+        """Maxwell first-order slip (FlowModelSlipJump.h:47-86): the wall
+        velocity is the normal part of the specified velocity plus
+        sigma lambda / (dn + sigma lambda) of the tangential cell velocity,
+        relative to the moving wall."""
+        sl = mesh.group_faces(g)
+        owners = mesh.face_cell0[sl]
+        nhat = self._unit_normals(mesh, sl)
+        Vo = V[owners]
+        Vo_t = Vo - (Vo * nhat).sum(dim=1, keepdim=True) * nhat
+        bv = self._bc_velocity(mesh, bcvals, g)
+        bvn = (bv * nhat).sum(dim=1, keepdim=True) * nhat
+        bv_t = bv - bvn
+        opts = self.options
+        r_gas = 8314.472 / float(opts["molecularWeight"])
+        lam_mfp = (params["mu"][owners] / float(opts["operatingPressure"])
+                   * np.sqrt(0.5 * np.pi * r_gas
+                             * float(opts["operatingTemperature"])))
+        sig = bcvals[f"{g[1]}:accomodationCoefficient"]
+        dn = torch.abs((mesh.face_ds[sl] * nhat).sum(dim=1))
+        coeff = (sig * lam_mfp / (dn + sig * lam_mfp))[:, None]
+        return bvn + bv_t + coeff * (Vo_t - bv_t)
+
     def _boundary_mass_flux(self, mesh, params, state, bcvals):
         """mdot on boundary faces from the BCs (fixed during continuity)."""
         V = state["velocity"]
@@ -292,7 +320,7 @@ class FlowModel(Model):
         for g, bc in self._group_bcs():
             sl = mesh.group_faces(g)
             t = bc.bc_type
-            if t in ("NoSlipWall", "Symmetry"):
+            if t in ("NoSlipWall", "SlipJump", "Symmetry"):
                 continue  # zero
             owners = mesh.face_cell0[sl]
             rho_f = params["rho"][owners]

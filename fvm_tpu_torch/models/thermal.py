@@ -4,12 +4,15 @@ The reference's ThermalModel (ThermalModel.h:19, ThermalModel_impl.h:84
 ``init``, :236 ``linearize``, :424 ``advance``; BC/VC dicts in
 ThermalBC.h): one linearize-assemble-solve step per outer iteration.
 
-BC types ported so far: 'SpecifiedTemperature', 'SpecifiedHeatFlux'
-(per-area, positive into the domain), 'Symmetry', 'ZeroGradient' (a
-convective outflow) and 'Convective' (heatTransferCoefficient +
-farFieldTemperature); the mask form of the immersed boundary and
-``getHeatFluxIntegral``.  'Radiative', 'Mixed', 'Periodic', double-shell
-interfaces, the stencil form of the immersed boundary and tangents come
+BC types: 'SpecifiedTemperature', 'SpecifiedHeatFlux' (per-area,
+positive into the domain), 'Symmetry', 'ZeroGradient' (a convective
+outflow), 'Convective' (heatTransferCoefficient + farFieldTemperature),
+'Radiative' (surfaceEmissivity + farFieldTemperature), 'Mixed' (convective
++ radiative) and 'Periodic' (the implicit wrap of ``Mesh.make_periodic``
+pairs); double-shell interfaces (contact resistance, thermal jump layers:
+``model.interface[name]``, core/interfaces.py); the mask form of the
+immersed boundary and ``getHeatFluxIntegral``.  The stencil form of the
+immersed boundary (ROADMAP queue 1 item 9) and tangents (item 5) come
 later.
 """
 
@@ -21,12 +24,15 @@ import torch
 
 from ..core.options import BoundaryCondition, ModelOptions
 from ..core import bcs as bck
+from ..core import interfaces as ifc
 from ..ops import assembly, discretizations as disc
 from ..ops.halo import maybe_sync
 from ..ops.gradients import ls_gradient_coefficients, gradient
 from ..linear import AMG, BiCGStab
 from ..exceptions import ConfigError
 from .base import Model, ResidualHistory
+
+STEFAN_BOLTZMANN = 5.670374419e-8
 
 
 class ThermalBC(BoundaryCondition):
@@ -39,12 +45,16 @@ class ThermalBC(BoundaryCondition):
         # the whole face flux and traps energy at a flow-through boundary
         "ZeroGradient",
         "Convective",
+        "Radiative",
+        "Mixed",
+        "Periodic",
     )
     _defaults = {
         "specifiedTemperature": 300.0,
         "specifiedHeatFlux": 0.0,
         "heatTransferCoefficient": 0.0,
         "farFieldTemperature": 300.0,
+        "surfaceEmissivity": 1.0,
     }
 
 
@@ -76,6 +86,10 @@ class ThermalModelOptions(ModelOptions):
 
 
 class ThermalModel(Model):
+    # double-shell interfaces (contact resistance, thermal jump layers;
+    # the reference's BatteryLinearizeThermalInterface.h): the default
+    # closure is the continuous interface (A = 1, B = 0)
+    _supports_interfaces = True
     name = "ThermalModel"
 
     def __init__(self, mesh):
@@ -92,6 +106,11 @@ class ThermalModel(Model):
 
     def init(self) -> None:
         mesh = self.mesh
+        if self.options.get("differentiable"):
+            raise ConfigError(
+                "ThermalModel: 'differentiable' (implicit-differentiation "
+                "solves for tangents) is not ported yet (ROADMAP queue 1 "
+                "item 5)")
         self.state = {
             "T": self._cell_field(self.vc, "initialTemperature"),
             "massFlux": self._full_faces(0.0),
@@ -108,6 +127,10 @@ class ThermalModel(Model):
             * self._cell_field(self.vc, "specificHeat"),
             "src": self._cell_field(self.vc, "heatSource"),
         }
+        for g, bc in self._group_bcs():
+            if bc.bc_type == "Periodic":
+                self.params[f"periodic_src:{g[1]}"] = \
+                    self._periodic_group_src(g)
         needs_grad = self.options["nonOrthogonalCorrection"] and not (
             mesh.orthogonal and self.options["convectionScheme"] != "sou"
         )
@@ -156,8 +179,8 @@ class ThermalModel(Model):
                 flux = bck.set_flux_fixed(flux, sl, -q * mesh.face_area_mag[sl])
             elif t == "Symmetry":
                 flux = bck.set_flux_fixed(flux, sl, 0.0)
-            # SpecifiedTemperature / ZeroGradient / Convective keep the
-            # face flux (the diffusive part references the ghost value)
+            # the other types keep the face flux (its diffusive part
+            # references the ghost value)
 
         # cell terms
         diag_cell, r_cell = disc.source_term(mesh, params["src"])
@@ -185,12 +208,29 @@ class ThermalModel(Model):
                 )
             elif t in ("SpecifiedHeatFlux", "Symmetry", "ZeroGradient"):
                 A, r = bck.extrapolation_rows(mesh, A, r, gc, T, valid, scale)
-            elif t == "Convective":
+            elif t == "Periodic":
+                # implicit wrap: the geometry wraps through the repositioned
+                # ghost, the partner coupling is slot 1
+                A, r = bck.periodic_rows(
+                    mesh, A, r, gc, T, params[f"periodic_src:{g[1]}"],
+                    valid, scale)
+            elif t in ("Convective", "Radiative", "Mixed"):
                 amag = mesh.face_area_mag[sl]
-                h = bcvals[f"{g[1]}:heatTransferCoefficient"]
-                Tinf = bcvals[f"{g[1]}:farFieldTemperature"]
-                coeff = h * amag
-                sink = h * amag * (Tinf - T[gc])
+                coeff = torch.zeros_like(amag)
+                sink = torch.zeros_like(amag)
+                Tg = T[gc]
+                if t in ("Convective", "Mixed"):
+                    h = bcvals[f"{g[1]}:heatTransferCoefficient"]
+                    Tinf = bcvals[f"{g[1]}:farFieldTemperature"]
+                    coeff = coeff + h * amag
+                    sink = sink + h * amag * (Tinf - Tg)
+                if t in ("Radiative", "Mixed"):
+                    eps = bcvals[f"{g[1]}:surfaceEmissivity"]
+                    Tinf = bcvals[f"{g[1]}:farFieldTemperature"]
+                    coeff = coeff + (4.0 * STEFAN_BOLTZMANN * eps * amag
+                                     * Tg**3)
+                    sink = sink + (STEFAN_BOLTZMANN * eps * amag
+                                   * (Tinf**4 - Tg**4))
                 A, r = bck.robin_sink_rows(mesh, A, r, gc, coeff, sink)
             else:
                 raise ConfigError(f"ThermalModel: unhandled bc_type {t!r}")
@@ -198,9 +238,9 @@ class ThermalModel(Model):
         # immersed-boundary rows (the mask form: pinned cells)
         A, r = self._apply_ib(mesh, params, A, r, T)
 
-        # double-shell interfaces (fvm_tpu: ifc.apply_model_interfaces) are
-        # an identity on a mesh without them, which is every mesh the port
-        # builds so far; halo rows do not exist on one device
+        A, r = ifc.apply_model_interfaces(mesh, self.interface, A, r, T,
+                                          flux, gamma_f)
+        # halo rows do not exist on one device
         A, r = assembly.identity_unowned_rows(mesh, A, r)
         return A, r
 

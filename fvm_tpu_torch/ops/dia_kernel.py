@@ -325,7 +325,7 @@ def _launch(offsets, mode, coef, diag, x, b, omega, variant=None):
     if err != 0:
         raise RuntimeError(f"dia_stencil launch failed: CUDA error {err}")
     dia_stencil.launches[mode] += 1
-    key = (_DTYPES[x.dtype][0], variant, mode, n)
+    key = (_DTYPES[x.dtype][0], variant, mode, n, D)
     dia_stencil.shapes[key] = dia_stencil.shapes.get(key, 0) + 1
     return y
 
@@ -347,8 +347,10 @@ def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
 
 
 # launches of the CUDA kernels per mode and per (element type "f32" /
-# "f64" / "bf16", variant, mode, rows): the second shows which variant
-# took each level (the plain version counts nothing)
+# "f64" / "bf16", variant, mode, rows, number of offsets D): the second
+# shows which variant took each level, and its D tells the ILU triangular
+# sweeps (D 2, linear/ilu.py) from the matrix products at the same rows
+# (the plain version counts nothing)
 dia_stencil.launches = {m: 0 for m in MODES}
 dia_stencil.shapes = {}
 
@@ -356,7 +358,7 @@ dia_stencil.shapes = {}
 def variant_launches() -> dict:
     """Launches per variant since the last reset."""
     out = {v: 0 for v in VARIANTS}
-    for (_, variant, _, _), count in dia_stencil.shapes.items():
+    for (_, variant, _, _, _), count in dia_stencil.shapes.items():
         out[variant] += count
     return out
 
@@ -370,7 +372,7 @@ def type_launches(dtype, shapes: dict | None = None) -> dict:
     """Launches per mode of one element type in ``shapes`` (a dict keyed
     as ``dia_stencil.shapes``; default the live counter)."""
     out = {m: 0 for m in MODES}
-    for (tag, _, mode, _), count in (
+    for (tag, _, mode, _, _), count in (
             dia_stencil.shapes if shapes is None else shapes).items():
         if tag == type_tag(dtype):
             out[mode] += count

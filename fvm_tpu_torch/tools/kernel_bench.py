@@ -82,14 +82,17 @@ def level_shapes(amg, mesh):
     return out
 
 
-def bound(n, m, D, mode, item):
+def bound(n, m, D, mode, item, diag=True):
     """Least time of one call on an H100 (ms), what bounds it, and the
     bytes and operations counted: each input read once (diag, D coef rows,
     x, and b but in mv), y written once; per element the diag product, D
-    multiply-adds and the mode's extra operations."""
+    multiply-adds and the mode's extra operations.  ``diag`` False: a
+    function with no diagonal term (an ILU triangular sweep, whose launch
+    passes a zero diagonal), so neither its row nor its product counts."""
     vec = n * m
-    nbytes = item * (n * (D + 1) + vec * (2 if mode == "mv" else 3))
-    nops = vec * (2 * D + 1 + MODE_OPS[mode])
+    rows = D + 1 if diag else D
+    nbytes = item * (n * rows + vec * (2 if mode == "mv" else 3))
+    nops = vec * (2 * D + (1 if diag else 0) + MODE_OPS[mode])
     return _limit(nbytes, nops)
 
 
@@ -129,24 +132,6 @@ def _profile(run, sessions=3):
         if events:
             return events
     return []
-
-
-def time_device(fns, reps):
-    """Mean device ms per call of ``reps`` eager calls cycling through
-    ``fns``: the self device time of every kernel they launched
-    (torch.profiler), summed, over ``reps``.  Gaps between kernels do not
-    count."""
-    for fn in fns:
-        fn()
-
-    def run():
-        for i in range(reps):
-            fns[i % len(fns)]()
-
-    us = sum(e.self_device_time_total for e in _profile(run))
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
 
 
 def time_device_by_kernel(labelled, reps, turns=2):

@@ -1,7 +1,7 @@
 """How far the JAX package's own residual histories move under round-off.
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
-        ib,channel,homocase,electric]
+        ib,channel,homocase,electric,goldens]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -30,7 +30,13 @@ all by default):
   (``cases.homocase_standin``'s settings), the zmax temperature scaled;
 * ``electric``: 5 outers of ``tests/test_torch_electric.py``'s prism
   model (per-cell permittivity, space charge and a random potential from
-  seed 1, default solver), the zmax potential scaled.
+  seed 1, default solver), the zmax potential scaled;
+* ``goldens``: the golden configurations of
+  ``tests/test_golden_histories.py:44-143`` for the families ILU0, SPIKE
+  and JACOBI: ``cavity/<family>/np1`` (30 SIMPLE outers, the viscosity
+  scaled) and ``thermal/<family>/np1`` (10 outers, the left wall
+  temperature scaled; not for JACOBI, which has no thermal golden), each
+  also against its pinned history in ``tests/goldens/histories.json``.
 
 A port held against these histories cannot be held tighter than this
 spread; the port's parity tests run the Newton and Poiseuille
@@ -208,6 +214,8 @@ def main() -> int:
             hs.append([r[1] for r in m.advance(5)])
         print(f"electric prisms, 5 outers: max rel difference "
               f"{spread(*hs):.3e}", flush=True)
+    if "goldens" in cases:
+        _goldens(jfvm, JFlow, spread)
     if "newton" not in cases:
         if "poiseuille" in cases:
             _poiseuille(JFlow, jfvm, spread)
@@ -227,6 +235,71 @@ def main() -> int:
     if "poiseuille" in cases:
         _poiseuille(JFlow, jfvm, spread)
     return 0
+
+
+def _golden_solver(family):
+    """A family's solver as ``tests/test_golden_histories.py:44-86``."""
+    from fvm_tpu.linear import BiCGStab, JacobiSolver
+    from fvm_tpu.linear.ilu import ILU0Solver
+    from fvm_tpu.linear.spike import SpikeSolver
+
+    if family == "JACOBI":
+        return JacobiSolver(sweeps=60)
+    pre = {"ILU0": ILU0Solver, "SPIKE": SpikeSolver}[family]()
+    return BiCGStab(preconditioner=pre, relative_tolerance=1e-3,
+                    max_iterations=200)
+
+
+def _goldens(jfvm, JFlow, spread):
+    import json
+    import os
+    from fvm_tpu.models import ThermalModel
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests", "goldens", "histories.json")
+    with open(path) as f:
+        pinned = json.load(f)
+    for family in ("ILU0", "SPIKE", "JACOBI"):
+        hs = []
+        for eps in (0.0, 1e-15):
+            m = JFlow(jfvm.mesh.build_device_mesh(
+                jfvm.mesh.generate.quad_2d(32, 32)))
+            m.options["verbose"] = False
+            m.vc["density"] = 1.0
+            m.vc["viscosity"] = 0.1 * (1 + eps)
+            for s_ in ("left", "right", "bottom", "top"):
+                m.bc[s_].bc_type = "NoSlipWall"
+            m.bc["top"]["specifiedXVelocity"] = 1.0
+            m.options["pressureLinearSolver"] = _golden_solver(family)
+            m.init()
+            hs.append([[r[1], r[2]] for r in m.advance(30)])
+        key = f"cavity/{family}/np1"
+        print(f"{key}: max rel difference {spread(*hs):.3e}; unperturbed "
+              f"run vs the pinned golden {spread(pinned[key], hs[0]):.3e}",
+              flush=True)
+        if family == "JACOBI":
+            continue
+        hs = []
+        for eps in (0.0, 1e-15):
+            t = ThermalModel(jfvm.mesh.build_device_mesh(
+                jfvm.mesh.generate.quad_2d(32, 32)))
+            t.options["verbose"] = False
+            s_ = _golden_solver(family)
+            s_.relativeTolerance = 5e-2
+            s_.nMaxIterations = min(s_.nMaxIterations, 8)
+            t.options["linearSolver"] = s_
+            t.bc["left"].bc_type = "SpecifiedTemperature"
+            t.bc["left"]["specifiedTemperature"] = 400.0 * (1 + eps)
+            t.bc["right"].bc_type = "SpecifiedTemperature"
+            t.bc["right"]["specifiedTemperature"] = 300.0
+            t.bc["bottom"].bc_type = "Symmetry"
+            t.bc["top"].bc_type = "Symmetry"
+            t.init()
+            hs.append([[r[1]] for r in t.advance(10)])
+        key = f"thermal/{family}/np1"
+        print(f"{key}: max rel difference {spread(*hs):.3e}; unperturbed "
+              f"run vs the pinned golden {spread(pinned[key], hs[0]):.3e}",
+              flush=True)
 
 
 def _poiseuille(JFlow, jfvm, spread):

@@ -177,10 +177,10 @@ def test_variant_counters(cuda):
         dk.dia_stencil(offsets, "mv", coef, diag, x)
     torch.cuda.synchronize()
     assert dk.dia_stencil.shapes == {
-        ("f32", "narrow", "residual", small): 1,
-        ("f32", "narrow", "mv", small): 1,
-        ("f32", "wide", "residual", large): 1,
-        ("f32", "wide", "mv", large): 1,
+        ("f32", "narrow", "residual", small, 4): 1,
+        ("f32", "narrow", "mv", small, 4): 1,
+        ("f32", "wide", "residual", large, 4): 1,
+        ("f32", "wide", "mv", large, 4): 1,
     }
     assert dk.variant_launches() == {"narrow": 2, "wide": 2}
     assert dk.dia_stencil.launches == {"mv": 2, "residual": 2, "jacobi": 0}
@@ -729,3 +729,94 @@ def test_electrostatics_cuda_matches_plain(cuda):
     assert rg["converged"] and rc["converged"]
     xg, xc = rg["x"].cpu(), rc["x"]
     assert float((xg - xc).abs().max()) <= 1e-8 * float(xc.abs().max())
+
+
+def _condensed_thermal(device, dtype, n=64):
+    """The condensed matrix of the bench cavity's thermal system (the
+    golden family's ILU0 and SPIKE preconditioners factor it)."""
+    from fvm_tpu_torch.cases import cavity_family
+    _, t = cavity_family(n, "ILU0", device=device, dtype=dtype)
+    A, r = t._linearize(t.mesh, t.params, t.state, t._resolve_bcvals())
+    A2, r2, _ = A.condense(r)
+    return A2.prepare(), r2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [1, 2])
+def test_ilu_sweeps_launch_the_kernel_bit_for_bit(cuda, dtype, m):
+    """On a CUDA tensor each ILU(0) triangular sweep is one ``dia_stencil``
+    launch (residual mode, zero diagonal, D 2): the apply equals the roll
+    formula on the same card bit for bit, 2 tri_sweeps launches per
+    apply."""
+    from fvm_tpu_torch.linear.ilu import (PackedFactors, ilu0_apply,
+                                          ilu0_apply_plain, ilu0_factor)
+    A, r = _condensed_thermal(cuda, dtype)
+    l, u, ud = ilu0_factor(A.dia.offsets, A.dia_coef, A.diag)
+    packed = PackedFactors(l, u, ud)
+    rr = r if m == 1 else torch.stack([r, 2.0 * r], dim=1)
+    dk.reset_launches()
+    got = ilu0_apply(l, u, ud, rr, 4, packed)
+    want = ilu0_apply_plain(l, u, ud, rr, 4)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) == 0.0
+    tag = dk.type_tag(getattr(torch, dtype))
+    assert dk.dia_stencil.shapes == {
+        (tag, dk.dispatch(A.n, A.diag.dtype), "residual", A.n, 2): 8}
+
+
+def test_spike_apply_cuda_matches_cpu(cuda):
+    from fvm_tpu_torch.linear import SpikeSolver
+    A, r = _condensed_thermal(cuda, "float64")
+    Ac, rc = _condensed_thermal("cpu", "float64")
+    got = SpikeSolver().precond_setup(A)(r)
+    want = SpikeSolver().precond_setup(Ac)(rc)
+    assert float((got.cpu() - want).abs().max()) <= 1e-12 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("family", ["ILU0", "SPIKE"])
+def test_cavity_family_cuda_matches_cpu(cuda, family):
+    """Five coupled outers of ``cases.cavity_family`` at 32^2 float64 with
+    tight inner solves on the card (the ILU sweeps on the kernel) and on
+    the CPU."""
+    from fvm_tpu_torch.cases import (FAMILY_TIGHT_RTOL, cavity_family,
+                                     tighten_family)
+    hist = []
+    for dev in (cuda, "cpu"):
+        flow, thermal = cavity_family(32, family, device=dev,
+                                      dtype="float64")
+        tighten_family(flow, thermal)
+        dk.reset_launches()
+        hist.append([[float(v) for v in coupled_step(flow, thermal)]
+                     for _ in range(5)])
+        if dev is cuda and family == "ILU0":
+            assert any(k[4] == 2 for k in dk.dia_stencil.shapes)
+    np.testing.assert_allclose(hist[0], hist[1],
+                               rtol=FAMILY_TIGHT_RTOL[family])
+
+
+def test_plate_flux_closure_chunk_replay_and_restart(cuda):
+    """The two-material plate's contact-resistance closure (forward-mode
+    derivatives) inside an ``outerChunk`` replay equals the eager outers
+    bit for bit; a restart after the replay continues as the uninterrupted
+    run."""
+    from fvm_tpu_torch.cases import two_material_plate
+    runs = []
+    for chunk in (0, 3, 3):
+        t, _ = two_material_plate(device=cuda, nx=64, ny=16)
+        t.options["relativeTolerance"] = 0.0
+        t.options["absoluteTolerance"] = 0.0
+        t.options["outerChunk"] = chunk
+        # deterministic: the fallback entries' index_add adds with atomics
+        with _deterministic():
+            h = [float(v[1]) for v in t.advance(3)]
+            data = t.getPersistenceData()
+            if len(runs) == 2:
+                t.advance(3)
+                t.restart(data)
+            h += [float(v[1]) for v in t.advance(3)]
+        runs.append((h, t.getTemperature()))
+    assert runs[1][0] == runs[0][0] and runs[2][0] == runs[1][0]
+    assert np.array_equal(runs[1][1], runs[0][1])
+    assert np.array_equal(runs[2][1], runs[1][1])
