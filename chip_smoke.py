@@ -142,11 +142,35 @@ script exits non-zero before the last line):
  20. small    - the slip-wall Couette flow cuda against cpu (60 outers), and
                 a restart after ``outerChunk`` replays against the
                 uninterrupted run, bit for bit;
+ 21. sens     - the sensitivities of the variable-conductivity slab
+                (``cases.sensitivity_slab``) at quad_2d(1024, 1024) in
+                float64: converged, three ``solve_tangent`` directions and
+                ``solve_adjoint`` of the mean temperature, seconds per
+                tangent and per adjoint, ``dia_stencil`` launches by shape
+                and by scope (primal solves, the tangent's dA x products on
+                its coefficients and its solves, the transposed solve on
+                A^T), the transposed solve's iterations and residual, the
+                duality gap, peak memory; the first tangent against central
+                differences, <A^T u, v> against <u, A v>, and the duality
+                gate (at 1024^2 where the transposed solve converges, and
+                at ``SENS_GATE_N``^2); the kernel at the slab's shape and
+                its transpose's against the plain version, its rows;
+ 22. cavsens  - the cavity's sensitivities (``cases.cavity_sensitivities``):
+                at 32^2 float64 with tightened inner solves, cuda against
+                cpu and the truncated duality; then bench's 1024^2 float32
+                cavity from phase 5's state: ``solve_tangent_force("top",
+                {"mu": 1})`` (5 iterations) and ``solve_adjoint_force``
+                (4 sweeps), ms per tangent and adjoint iteration, launches
+                per iteration by shape and scope, the transposed solves'
+                iterations, the kernel ops outside the solves, peak memory
+                and the (ungated) duality gap;
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
 ``(converge)`` rows and the suite's in the ``(suite)`` rows, timed at the
 channel's and the card-size prisms' fine levels; the ILU sweep and the
-plate's fine level in their own rows) and, last, the device JSON line.
+plate's fine level in their own rows; the sensitivities' in the
+``(sensitivity, f64)`` and ``(cavity sensitivities)`` rows) and, last, the
+device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -233,10 +257,11 @@ NEWTON_ATOL = 1e-12  # as tests/test_golden_histories.py: round-off floors
 COUPLED_STEPS = 20
 ANDERSON_STEPS = 60
 # the converge path at 1024^2 in phase 14: the float32 phase and the first
-# two Newton steps (the whole sequence to 1e-6 took 243 s of the card and
-# five Newton steps, measured: scripts/converge_run.py runs it); the run
-# must end below the float32 floor it started the endgame from
-CONVERGE_NEWTON = 2
+# Newton step (the whole sequence to 1e-6 took 243 s of the card and five
+# Newton steps, measured: scripts/converge_run.py runs it; the phase ran
+# two steps until the sensitivities' phases 21-22 needed its minute); the
+# run must end below the float32 floor it started the endgame from
+CONVERGE_NEWTON = 1
 CONVERGE_REACH = None
 
 
@@ -2234,6 +2259,349 @@ def small_checks_phase(device):
     torch.cuda.synchronize()
 
 
+# ---- 21-22: the sensitivities -------------------------------------------
+# phase 21: the variable-conductivity slab of tests/test_sensitivity.py:
+# 382-411 at quad_2d(1024, 1024), float64 (cases.sensitivity_slab)
+SENS_N = 1024
+SENS_SEED = 21
+SENS_DIRECTIONS = 3
+# the tangent against central differences, as tests/test_sensitivity.py:286
+SENS_FD_EPS = 1e-6
+SENS_FD_RTOL = 5e-5
+# the adjoint against the tangent (<grad, v> against d(mean T) . v)
+SENS_DUAL_TOL = 1e-6
+# <A^T u, v> against <u, A v>, relative to |A^T u| |v|
+SENS_TRANSPOSE_TOL = 1e-12
+# the duality's second size: the largest power-of-two slab whose
+# transposed solve (BiCGStab(Jacobi(3)), 400 iterations at most) reaches
+# 1e-10 in fvm_tpu itself (scripts/duality_scale.py, on the CPU: 128^2 in
+# 248 iterations; 256^2 stops at 400 with 1.5e-7)
+SENS_GATE_N = 128
+# phase 22: bench's 1024^2 float32 cavity from phase 5's state, K tangent
+# iterations and K - 1 adjoint sweeps; the gates at 32^2 float64 with the
+# inner solves tightened to 1e-12 (cases.tighten_cavity)
+CAVITY_SENS_NITER = 5
+CAVITY_GATE_N = 32
+CAVITY_GATE_OUTERS = 20
+CAVITY_GATE_NITER = 3
+CAVITY_GATE_RTOL = 1e-9
+
+
+def _launch_summary(shapes, scoped):
+    """``dia_stencil`` launches by (type/variant/mode, rows, D), then by
+    scope (the tangent's dA x and solves, the transposed solves; the rest
+    are the primal solves)."""
+    parts = [f"{k[0]}/{k[1]}/{k[2]} n={k[3]} D={k[4]}: {v}"
+             for k, v in sorted(shapes.items())]
+    total = {}
+    for (_, _, mode, _, _), v in shapes.items():
+        total[mode] = total.get(mode, 0) + v
+    scopes = {}
+    for (scope, mode), v in scoped.items():
+        scopes.setdefault(scope, {})[mode] = v
+        total[mode] -= v
+    scopes["primal solves"] = {m: v for m, v in total.items() if v}
+    return "; ".join(parts), "; ".join(
+        f"{sc}: " + ", ".join(f"{m} {v}" for m, v in sorted(d.items()))
+        for sc, d in sorted(scopes.items()))
+
+
+def slab_duality(t, dirs):
+    """The adjoint of mean T against the tangents along ``dirs``: (max
+    relative gap, the transposed solve's stats)."""
+    g = t.solve_adjoint(lambda T: T.mean(), ["k_cell"])["k_cell"]
+    stats = t.options["linearSolver"].transpose_stats
+    gaps = []
+    for d in dirs:
+        want = float(np.mean(t.solve_tangent({"k_cell": d})))
+        gaps.append(abs(float(np.dot(g, d)) - want) / abs(want))
+    return max(gaps), stats
+
+
+def _stats_line(stats):
+    it = int(stats.iterations)
+    rel = float(stats.residual) / float(stats.residual0)
+    return it, rel, bool(stats.converged)
+
+
+def sensitivity_phase(device, smi):
+    """Phase 21 (module docstring); returns its ``kernels`` rows."""
+    import torch
+    from fvm_tpu_torch.cases import sensitivity_slab
+    from fvm_tpu_torch.linear.base import LinearSolver, TransposedOperator
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    t0 = time.perf_counter()
+    t = sensitivity_slab(SENS_N, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = t.advance(30)
+    torch.cuda.synchronize()
+    mesh = t.mesh
+    n = mesh.n_interior_cells
+    log("sens", f"slab quad_2d({SENS_N}, {SENS_N}) float64: {n} cells, "
+        f"{mesh.n_cells} rows, set up in {setup_s:.2f} s; {len(hist)} outers "
+        f"to {hist[-1][1] / hist[0][1]:.3e} of the first residual in "
+        f"{time.perf_counter() - t0:.2f} s ({smi})")
+    rng = np.random.default_rng(SENS_SEED)
+    dirs = [rng.standard_normal(n) for _ in range(SENS_DIRECTIONS)]
+
+    # ---- the main path: the tangents and the adjoint, counts reset just
+    # before each
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    dTs = [t.solve_tangent({"k_cell": d}) for d in dirs]
+    tan_s = (time.perf_counter() - t0) / len(dirs)
+    tan = (dict(dk.dia_stencil.launches), dict(dk.dia_stencil.shapes),
+           dict(dk.dia_stencil.scoped))
+    dk.reset_launches()
+    secs = {}
+    t0 = time.perf_counter()
+    with stage_clock(secs, [(LinearSolver, "transpose_solve_fn",
+                             "transposed solve")]):
+        g = t.solve_adjoint(lambda T: T.mean(), ["k_cell"])["k_cell"]
+    adj_s = time.perf_counter() - t0
+    adj = (dict(dk.dia_stencil.launches), dict(dk.dia_stencil.shapes),
+           dict(dk.dia_stencil.scoped))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    it, rel, conv = _stats_line(t.options["linearSolver"].transpose_stats)
+    log("sens", f"{tan_s:.3f} s per tangent ({len(dirs)} directions), "
+        f"{adj_s:.3f} s per adjoint (the transposed solve "
+        f"{secs['transposed solve']:.3f} s of it, host); peak memory "
+        f"{peak:.3f} GiB, {peak - held:.3f} GiB above the {held:.3f} GiB "
+        f"held before ({smi})")
+    for label, (_, shapes, scoped) in (("tangents", tan), ("adjoint", adj)):
+        by_shape, by_scope = _launch_summary(shapes, scoped)
+        log("sens", f"dia_stencil launches, {label}: {by_shape}")
+        log("sens", f"  by scope: {by_scope}")
+    if not tan[2].get(("tangent dA x", "mv")):
+        raise AssertionError("the tangent's dA x never launched the kernel")
+    if not any(v for (sc, _), v in adj[2].items()
+               if sc == "transposed solve"):
+        raise AssertionError("the transposed solve never launched the kernel")
+    for d in dTs + [g]:
+        if d.shape != (n,) or not np.isfinite(d).all():
+            raise AssertionError("a sensitivity is not finite or misshapen")
+    gaps = [abs(float(np.dot(g, d)) - float(np.mean(dT)))
+            / abs(float(np.mean(dT))) for d, dT in zip(dirs, dTs)]
+    log("sens", f"transposed solve at {SENS_N}^2: {it} iterations (cap "
+        f"{max(4 * t.options['linearSolver'].nMaxIterations, 400)}), final "
+        f"relative residual {rel:.3e}, converged {conv}; duality gap "
+        f"|<grad, v> - d(mean T).v| / |d(mean T).v| per direction: "
+        + ", ".join(f"{v:.3e}" for v in gaps))
+    if conv:
+        if not max(gaps) <= SENS_DUAL_TOL:
+            raise AssertionError(f"duality gap {max(gaps):.3e} at {SENS_N}^2")
+    else:
+        log("sens", f"the transposed solve stops at its cap at {SENS_N}^2, "
+            f"as fvm_tpu's does from 256^2 on (scripts/duality_scale.py; "
+            f"ROADMAP queue 3): the duality is held at {SENS_GATE_N}^2")
+
+    # ---- the transpose: <A^T u, v> = <u, A v>
+    A, _ = t._linearize(mesh, t.params, t.state, t._resolve_bcvals())
+    gen = torch.Generator(device="cpu").manual_seed(SENS_SEED)
+    u, v = (torch.randn(A.n, generator=gen, dtype=torch.float64).to(device)
+            for _ in range(2))
+    At_u = TransposedOperator(A).mv(u)
+    lhs, rhs = float(At_u @ v), float(u @ A.mv(v))
+    scale = float(At_u.norm() * v.norm())
+    log("sens", f"<A^T u, v> = {lhs:.15e}, <u, A v> = {rhs:.15e}: "
+        f"{abs(lhs - rhs) / scale:.3e} of |A^T u||v| (tol "
+        f"{SENS_TRANSPOSE_TOL:g})")
+    if not abs(lhs - rhs) <= SENS_TRANSPOSE_TOL * scale:
+        raise AssertionError("the materialized transpose is not A^T")
+
+    # ---- the first tangent against central differences
+    k0 = 1.0 + 0.5 * np.linspace(0, 1, n)
+    t0 = time.perf_counter()
+    sides = []
+    for sgn in (1.0, -1.0):
+        ts = sensitivity_slab(SENS_N, dmesh=mesh,
+                              conductivity=k0 + sgn * SENS_FD_EPS * dirs[0])
+        ts.advance(30)
+        sides.append(ts.getTemperature())
+        del ts
+    fd = (sides[0] - sides[1]) / (2 * SENS_FD_EPS)
+    err = np.abs(dTs[0] - fd)
+    worst = float(np.max(err / (SENS_FD_RTOL * np.abs(fd)
+                                + SENS_FD_RTOL * np.abs(fd).max())))
+    log("sens", f"tangent vs central differences (eps {SENS_FD_EPS:g}): max "
+        f"abs err {err.max():.3e} (|fd| max {np.abs(fd).max():.3e}), "
+        f"{worst:.3f} of the tolerance (rtol {SENS_FD_RTOL:g}, atol "
+        f"rtol |fd|max) in {time.perf_counter() - t0:.2f} s")
+    if not worst <= 1.0:
+        raise AssertionError("the tangent disagrees with central differences")
+
+    # ---- the duality where the transposed solve converges
+    ts = sensitivity_slab(SENS_GATE_N, device=device)
+    ts.advance(30)
+    nn = ts.mesh.n_interior_cells
+    gen_dirs = [np.random.default_rng(SENS_SEED + i).standard_normal(nn)
+                for i in range(SENS_DIRECTIONS)]
+    gap, stats = slab_duality(ts, gen_dirs)
+    it2, rel2, conv2 = _stats_line(stats)
+    log("sens", f"duality at {SENS_GATE_N}^2: gap {gap:.3e} (tol "
+        f"{SENS_DUAL_TOL:g}); transposed solve {it2} iterations, relative "
+        f"residual {rel2:.3e}, converged {conv2}")
+    if not (conv2 and gap <= SENS_DUAL_TOL):
+        raise AssertionError(f"duality at {SENS_GATE_N}^2 fails")
+    del t, ts, A
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the kernel at the transpose's shape (the uncondensed matrix's
+    # offsets negated: its dA x products and the transposed solve), then
+    # the rows with this phase's launches
+    launches = {m: tan[0][m] + adj[0][m] for m in dk.MODES}
+    return transpose_rows(" (sensitivity, f64)", mesh, 1, launches,
+                          "float64", device)
+
+
+def transpose_rows(tag, mesh, m, launches, dtype_name, device):
+    """The kernel against its plain version at the transposed operator's
+    shape of ``mesh`` (its uncondensed DIA offsets negated, as the adjoint
+    launches it), then the ``kernels`` rows with ``launches``, mv on (n,
+    ``m``)."""
+    offs = tuple(sorted(-d for d in mesh.dia.offsets))
+    errors = {}
+    kernel_vs_plain(f"{tag.strip(' ()')}: transposed fine level",
+                    mesh.n_cells, offs, device, errors,
+                    nrhs=tuple(sorted({1, m})), dtypes=(dtype_name,))
+    return time_modes(tag, mesh.n_cells, offs,
+                      (("mv", m), ("residual", 1), ("jacobi", 1)), launches,
+                      errors, dtype_name)
+
+
+def cavity_gates(device):
+    """Phase 22's gates at 32^2 float64 with tightened inner solves: the
+    cavity's sensitivities on the card against the CPU's, and the
+    truncated duality on both."""
+    from fvm_tpu_torch.cases import (cavity_sensitivities, coupled_cavity,
+                                     tighten_cavity)
+
+    import torch
+
+    res = []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        flow, _ = coupled_cavity(CAVITY_GATE_N, device=dev, dtype="float64")
+        tighten_cavity(flow)
+        flow.advance(CAVITY_GATE_OUTERS)
+        out = cavity_sensitivities(flow, niter=CAVITY_GATE_NITER)
+        log("cavsens", f"{CAVITY_GATE_N}^2 float64 on {dev.type}: tangent "
+            f"force {out['tangent'].tolist()}, <grad mu, 1> {out['dual']:.12e}"
+            f", truncated duality gap {out['gap']:.3e} (tol "
+            f"{CAVITY_GATE_RTOL:g}) in {time.perf_counter() - t0:.2f} s")
+        if not out["gap"] <= CAVITY_GATE_RTOL:
+            raise AssertionError(f"truncated duality on {dev.type}")
+        res.append(out)
+    a, b = res
+    worst = float(np.max(np.abs(a["tangent"] - b["tangent"])
+                         / np.abs(b["tangent"]).max()))
+    for k in b["adjoint"]:
+        worst = max(worst, float(np.max(np.abs(a["adjoint"][k]
+                                               - b["adjoint"][k]))
+                                 / np.abs(b["adjoint"][k]).max()))
+    log("cavsens", f"cuda vs cpu: max rel diff {worst:.3e} (tol "
+        f"{CAVITY_GATE_RTOL:g})")
+    if not worst <= CAVITY_GATE_RTOL:
+        raise AssertionError("cavity sensitivities: cuda vs cpu")
+
+
+def cavity_sensitivity_phase(device, state, smi):
+    """Phase 22 (module docstring): ``state`` is the 1024^2 flow state to
+    start from (phase 5's; None: the same number of steps from rest);
+    returns this phase's rows."""
+    import torch
+    from fvm_tpu_torch.cases import coupled_cavity
+    from fvm_tpu_torch.interop import load_model_state
+    from fvm_tpu_torch.linear.base import LinearSolver
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    cavity_gates(device)
+    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
+    del thermal
+    if state is None:  # alone (scripts/smoke_phases.py)
+        for _ in range(WARMUP_STEPS + 2 * TIMED_STEPS):
+            flow.advance(1)
+    else:
+        load_model_state(flow, {k: v.numpy() for k, v in state.items()})
+    K = CAVITY_SENS_NITER
+    # the main path: the tangent, then the adjoint, counts reset just
+    # before each
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    dF = flow.solve_tangent_force("top", {"mu": 1.0}, niter=K)
+    tan_s = time.perf_counter() - t0
+    tan = (dict(dk.dia_stencil.launches), dict(dk.dia_stencil.shapes),
+           dict(dk.dia_stencil.scoped))
+    dk.reset_launches()
+    secs = {}
+    t0 = time.perf_counter()
+    with stage_clock(secs, [
+            (torch.autograd, "grad", "reverse passes"),
+            (LinearSolver, "transpose_solve_fn", "transposed solves")]):
+        grads = flow.solve_adjoint_force("top", None, ("mu",),
+                                         ("top:specifiedXVelocity",),
+                                         niter=K - 1)
+    adj_s = time.perf_counter() - t0
+    adj = (dict(dk.dia_stencil.launches), dict(dk.dia_stencil.shapes),
+           dict(dk.dia_stencil.scoped))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mom = flow.options["momentumLinearSolver"].transpose_stats
+    pres = flow.options["pressureLinearSolver"].transpose_stats
+    dual = float(grads["mu"].sum())
+    gap = abs(dual - float(dF[0])) / abs(float(dF[0]))
+    log("cavsens", f"{MAIN_N}^2 {MAIN_DTYPE} cavity from phase 5's state: "
+        f"tangent force ({K} iterations) {dF.tolist()} in {tan_s:.3f} s, "
+        f"{1e3 * tan_s / K:.1f} ms per tangent iteration; adjoint force "
+        f"({K - 1} sweeps and the parameter sweep) in {adj_s:.3f} s, "
+        f"{1e3 * adj_s / K:.1f} ms per adjoint sweep (host seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f"); peak memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
+        f"{held:.3f} GiB held before ({smi})")
+    for label, (launch, shapes, scoped) in (("tangent", tan),
+                                            ("adjoint", adj)):
+        by_shape, by_scope = _launch_summary(shapes, scoped)
+        log("cavsens", f"dia_stencil launches per {label} iteration: "
+            + ", ".join(f"{m} {launch[m] / K:g}" for m in dk.MODES))
+        log("cavsens", f"  {label}, all: {by_shape}")
+        log("cavsens", f"  by scope: {by_scope}")
+    for name, st in (("momentum", mom), ("pressure", pres)):
+        it, rel, conv = _stats_line(st)
+        log("cavsens", f"last transposed {name} solve: {it} iterations, "
+            f"relative residual {rel:.3e}, converged {conv}")
+    log("cavsens", f"kernel ops the differentiated SIMPLE step applies "
+        f"outside its solves (their backward: scope 'stencil vjp'): "
+        f"{sum(v for (sc, _), v in adj[2].items() if sc == 'stencil vjp')}"
+        f" launches; <grad mu, 1> {dual:.6e} against the tangent's "
+        f"{float(dF[0]):.6e}: gap {gap:.3e}, not gated: bench's inner "
+        f"solves stop at 1e-2 / 1e-3, so the tangent and the adjoint are "
+        f"each exact only to those tolerances")
+    if not (np.isfinite(dF).all() and dF.shape == (2,)
+            and all(np.isfinite(v).all() for v in grads.values())):
+        raise AssertionError("cavity sensitivities are not finite")
+    if not (tan[2].get(("tangent dA x", "mv"))
+            and any(v for (sc, _), v in adj[2].items()
+                    if sc == "transposed solve")):
+        raise AssertionError("the cavity's tangent or adjoint did not "
+                             "launch the kernel")
+    mesh = flow.mesh
+    del flow, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {m: tan[0][m] + adj[0][m] for m in dk.MODES}
+    return transpose_rows(" (cavity sensitivities)", mesh, 2, launches,
+                          MAIN_DTYPE, device)
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -2334,6 +2702,8 @@ def main() -> int:
     restore(flow, thermal, snap)
     graph_steps(flow, thermal, "main", MAIN_N * MAIN_N,
                 f"{MAIN_N}^2 {MAIN_DTYPE}", hist, 0.0, step_ms)
+    # phase 22 starts from this state
+    cavity_state = {k: v.detach().cpu() for k, v in flow.state.items()}
     del flow, thermal, snap
     gc.collect()
 
@@ -2487,7 +2857,12 @@ def main() -> int:
     # ---- 18-20. the linear extras and the boundary physics ---------------
     t18 = time.time()
     kernels.extend(extras_phases(device, smi))
-    log("done", f"phases 18-20 in {time.time() - t18:.1f} s; phases 1-20 in "
+    log("done", f"phases 18-20 in {time.time() - t18:.1f} s")
+
+    # ---- 21-22. the sensitivities ---------------------------------------
+    t21 = time.time()
+    kernels.extend(extras_phases(device, smi, (21, 22), cavity_state))
+    log("done", f"phases 21-22 in {time.time() - t21:.1f} s; phases 1-22 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2495,14 +2870,17 @@ def main() -> int:
     return 0
 
 
-def extras_phases(device, smi, phases=(18, 19, 20)):
-    """Phases 18-20 (those in ``phases``), each timed; returns their
-    ``kernels`` rows."""
+def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
+    """Phases 18-22 (those in ``phases``), each timed; returns their
+    ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
             families_phase(device, errors, smi))),
             (19, lambda: rows.extend(plate_phase(device, errors, smi))),
-            (20, lambda: small_checks_phase(device))):
+            (20, lambda: small_checks_phase(device)),
+            (21, lambda: rows.extend(sensitivity_phase(device, smi))),
+            (22, lambda: rows.extend(cavity_sensitivity_phase(
+                device, cavity_state, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

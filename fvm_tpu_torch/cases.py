@@ -719,3 +719,81 @@ def plate_run(t, rtol: float = PLATE_RTOL, max_outers: int = PLATE_MAX
             "history": [r[1] for r in h], "heat_flux": flows,
             "balance_rel": abs(total) / max(max(abs(v) for v in
                                                 flows.values()), 1e-300)}
+
+
+# ---- sensitivities ---------------------------------------------------------
+
+def sensitivity_slab(n: int, device=None, dtype="float64", ny=None,
+                     dmesh=None, conductivity=None):
+    """The variable-conductivity slab of ``tests/test_sensitivity.py:
+    382-411`` on ``quad_2d(n, ny or n)`` (or on ``dmesh``): a
+    ``ThermalModel`` with conductivity 1 + 0.5 linspace(0, 1) over the
+    interior cells (or ``conductivity``), the left wall at 400 K, a heat
+    flux of 10 into the right wall, symmetry at top and bottom and the
+    default ``BiCGStab(AMG, 1e-10, 50)`` (stopping early, ``exit_every``);
+    initialised.  Its
+    sensitivities: ``solve_tangent({"k_cell": ...})`` and
+    ``solve_adjoint(lambda T: T.mean(), ["k_cell"])``."""
+    dm = dmesh if dmesh is not None else build_device_mesh(
+        quad_2d(n, n if ny is None else ny), dtype=dtype, device=device)
+    t = ThermalModel(dm)
+    t.options["verbose"] = False
+    t.vc["thermalConductivity"] = (
+        1.0 + 0.5 * np.linspace(0, 1, dm.n_interior_cells)
+        if conductivity is None else conductivity)
+    t.bc["left"].bc_type = "SpecifiedTemperature"
+    t.bc["left"]["specifiedTemperature"] = 400.0
+    t.bc["right"].bc_type = "SpecifiedHeatFlux"
+    t.bc["right"]["specifiedHeatFlux"] = 10.0
+    t.bc["top"].bc_type = "Symmetry"
+    t.bc["bottom"].bc_type = "Symmetry"
+    t.init()
+    # the eager solves stop once every later trip would be frozen (the
+    # same result: the JAX package's while_loop stops there too)
+    t.options["linearSolver"].exit_every = FAMILY_EXIT_EVERY
+    return t
+
+
+def tighten_cavity(flow):
+    """The flow's momentum and pressure solves of a cavity to rtol 1e-12
+    (200 and 400 trips at most; bench's are BiCGStab and AMG), the step
+    rebuilt: with them the tangent and adjoint solves are exact to ~1e-12,
+    and so is the truncated duality of ``cavity_sensitivities``."""
+    mom = flow.options["momentumLinearSolver"]
+    pres = flow.options["pressureLinearSolver"]
+    for s, trips in ((mom, 200), (pres, 400)):
+        s.relativeTolerance = 1e-12
+        s.nMaxIterations = trips
+    # an eager BiCGStab stops once every later trip would be frozen (the
+    # same result)
+    mom.exit_every = FAMILY_EXIT_EVERY
+    flow._drop_compiled()
+
+
+def cavity_sensitivities(flow, niter: int = 5) -> dict:
+    """The lid force's sensitivities on bench's cavity from the flow's
+    current state: ``solve_tangent_force(lid, {"mu": 1.0}, niter)`` (the
+    force's change under a uniform change of the viscosity) and
+    ``solve_adjoint_force(lid, ("mu",), ("<lid>:specifiedXVelocity",),
+    niter - 1)`` (the x-force's gradient with respect to the whole
+    viscosity field and the lid's velocity on every face).
+
+    An adjoint of n sweeps is the exact transpose of a tangent of n + 1
+    iterations, so <grad mu, 1> equals the tangent's x-force up to the
+    solves' tolerances (the truncated duality; ``gap`` its relative
+    difference).  Returns the two results, ``dual`` = <grad mu, 1>, ``gap``
+    and the seconds of each (``tangent_s``, ``adjoint_s``)."""
+    lid = _WALLS[flow.mesh.dim][1]
+    dev = flow.mesh.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    dF = flow.solve_tangent_force(lid, {"mu": 1.0}, niter=niter)
+    t1 = time.perf_counter()
+    grads = flow.solve_adjoint_force(lid, None, ("mu",),
+                                     (f"{lid}:specifiedXVelocity",),
+                                     niter=niter - 1)
+    t2 = time.perf_counter()
+    dual = float(grads["mu"].sum())
+    return {"tangent": dF, "adjoint": grads, "dual": dual,
+            "gap": abs(dual - float(dF[0])) / max(abs(float(dF[0])), 1e-300),
+            "tangent_s": t1 - t0, "adjoint_s": t2 - t1, "niter": niter}

@@ -36,6 +36,21 @@ def extend_to_ghosts(mesh, x):
     return x
 
 
+def fold_ghosts(mesh, g):
+    """The adjoint of ``extend_to_ghosts`` applied to interior values
+    zero-padded to the mesh's cells: a per-cell cotangent ``g`` (nc, ...)
+    folded onto the interior cells, (n_interior, ...).  Each ghost's
+    cotangent is added onto the cell it copies (its owner, or its periodic
+    partner), then the interior rows (the role of the JAX package's
+    ``jax.linear_transpose`` of that extension)."""
+    n_int = mesh.n_interior_cells
+    src = ghost_owner_cells(mesh)
+    if mesh.periodic_ghost is not None:
+        src = src.clone()
+        src[mesh.periodic_ghost - n_int] = mesh.periodic_src
+    return g[:n_int].index_add(0, src, g[n_int: n_int + src.shape[0]])
+
+
 def _scale(scale):
     return 1.0 if scale is None else torch.where(scale > 0, scale, 1.0)
 

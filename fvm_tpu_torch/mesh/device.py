@@ -49,6 +49,18 @@ class HostMeshData:
         self.cf_mask = cf_mask
 
 
+
+def gather_rows(x, idx):
+    """``x[idx]`` along the first dimension, as ``index_select``: the same
+    values, and a reverse-mode derivative that adds with ``index_add``.
+    Advanced indexing's derivative sorts its indices first and then, on a
+    CUDA tensor, adds the rows of a repeated index one after another; half
+    of a quad mesh's device faces are padding that points at one padding
+    cell, and such a derivative took up to 311 ms per gather on the
+    1024^2 cavity (NVIDIA H100, PERF.md)."""
+    out = torch.index_select(x, 0, idx.reshape(-1))
+    return out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
 @dataclass(eq=False)
 class DeviceMesh:
     dim: int
@@ -96,18 +108,18 @@ class DeviceMesh:
         return self.cell_volume.dtype
 
     def take_owner(self, x):
-        return x[self.face_cell0]
+        return gather_rows(x, self.face_cell0)
 
     def take_nbr(self, x):
-        return x[self.face_cell1]
+        return gather_rows(x, self.face_cell1)
 
     def take_faces(self, F):
         """F[cf_face] -> (K, nc, ...)."""
-        return F[self.cf_face]
+        return gather_rows(F, self.cf_face)
 
     def take_cells(self, x):
         """x[cf_nbr] -> (K, nc, ...); padded slots return x[row]."""
-        return x[self.cf_nbr]
+        return gather_rows(x, self.cf_nbr)
 
     @property
     def n_owned_cells(self) -> int:

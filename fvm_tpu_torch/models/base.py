@@ -204,6 +204,56 @@ class Model:
                                             params["ib_value"], phi)
         return A, r
 
+    # --- sensitivity plumbing (fvm_tpu/models/base.py:508-570; the
+    # reference instantiates every model with the Tangent atype,
+    # models.cpp:10-74): the tangent inputs are dicts fed to torch.func.jvp
+
+    def _pad_cell_tangent(self, ref, v):
+        """A per-cell value (a scalar, or an (n_interior,) or full-shape
+        array) at ``ref``'s shape, interior arrays zero-padded and
+        ghost-extended like the primal parameters: the tangents' and
+        adjoints' parameter directions and the Monte-Carlo samples
+        (``models/sensitivity.py``)."""
+        from ..core import bcs as bck
+
+        v = as_tensor_like(v, ref)
+        if v.shape == ref.shape:
+            return v
+        if v.ndim == 0:
+            return torch.full(ref.shape, float(v), dtype=ref.dtype,
+                              device=ref.device)
+        out = torch.zeros(ref.shape, dtype=ref.dtype, device=ref.device)
+        out[: v.shape[0]] = v
+        return bck.extend_to_ghosts(self.mesh, out)
+
+    def _map_param_tangents(self, t: dict) -> dict:
+        """Hook: translate derived tangent keys (e.g. Young's modulus) into
+        tangents of ``self.params`` entries.  Default: identity."""
+        return t
+
+    def _tangent_inputs(self, param_tangents, bc_tangents, bcvals):
+        """((p_base, b_base), (p_tan, b_tan)): sub-dicts holding only the
+        perturbed entries; the jvp runs over these with the rest of params
+        and bcvals held fixed."""
+        t = self._map_param_tangents(dict(param_tangents or {}))
+        p_base, p_tan = {}, {}
+        for k, v in t.items():
+            if k not in self.params:
+                raise ConfigError(
+                    f"{self.name}.solve_tangent: unknown parameter {k!r} "
+                    f"(have {sorted(self.params)})")
+            p_base[k] = self.params[k]
+            p_tan[k] = self._pad_cell_tangent(self.params[k], v)
+        b_base, b_tan = {}, {}
+        for k, v in (bc_tangents or {}).items():
+            if k not in bcvals:
+                raise ConfigError(
+                    f"{self.name}.solve_tangent: unknown BC entry {k!r}")
+            ref = bcvals[k]
+            b_base[k] = ref
+            b_tan[k] = as_tensor_like(v, ref).expand(ref.shape).clone()
+        return (p_base, b_base), (p_tan, b_tan)
+
     # --- chunked outer loop ----------------------------------------------
     #
     # outerChunk > 1 runs up to that many outer (linearize/solve/update)
@@ -348,6 +398,15 @@ class Model:
                 old = self.state[k]
                 self.state[k] = torch.as_tensor(v, dtype=old.dtype).to(
                     old.device, copy=True)
+
+
+def as_tensor_like(v, ref) -> torch.Tensor:
+    """``v`` (a number, numpy array or tensor) as a tensor of ``ref``'s
+    dtype on its device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=ref.device, dtype=ref.dtype)
+    return torch.as_tensor(np.asarray(v, dtype=np.float64)).to(
+        device=ref.device, dtype=ref.dtype)
 
 
 class ResidualHistory(list):

@@ -11,10 +11,12 @@ chunked loop (a CUDA graph replay on a CUDA mesh).
 BC types: 'SpecifiedPotential', 'SpecifiedCharge' (surface charge density
 -> flux) and 'Symmetry'; the mask form of the immersed boundary; double-
 shell interfaces in the potential solve, the dielectric layer
-(LinearizeDielectric.h:102) among them.  Charge transport, injection,
-trapping, Poole-Frenkel emission and trap-band tunneling (ROADMAP queue 1
-item 6), the stencil form of the immersed boundary (item 9) and tangents
-(item 5) are not ported yet: their options raise ``ConfigError``.
+(LinearizeDielectric.h:102) among them.  Sensitivities of the potential
+solve (``solve_tangent``, ``solve_adjoint``, ``solve_mc``, charge held
+fixed).  Charge transport, injection, trapping, Poole-Frenkel emission and
+trap-band tunneling (ROADMAP queue 1 item 6) and the stencil form of the
+immersed boundary (item 9) are not ported yet: their options raise
+``ConfigError``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..linear import AMG, BiCGStab
 from ..ops import assembly, discretizations as disc
 from ..ops.gradients import gradient, ls_gradient_coefficients
 from .base import Model, ResidualHistory
+from .sensitivity import TangentMixin
 
 EPS0 = 8.8542e-12
 
@@ -84,7 +87,7 @@ _TRANSPORT_OPTIONS = ("chargetransport_enable", "injection_enable",
                       "trapbandtunneling_enable")
 
 
-class ElectricModel(Model):
+class ElectricModel(TangentMixin, Model):
     _supports_interfaces = True
     name = "ElectricModel"
 
@@ -289,9 +292,32 @@ class ElectricModel(Model):
         yet)."""
         self._set_immersed_boundary(mask, value, stencil, implicit)
 
+    # --- sensitivities (TangentMixin bound to the potential solve;
+    # fvm_tpu/models/electric.py:271-300) -----------------------------------
+
     def solve_tangent(self, param_tangents: dict):
-        raise ConfigError("ElectricModel: sensitivities are not ported yet "
-                          "(ROADMAP queue 1 item 5)")
+        """d(potential)/d(params) . direction at the current state (charge
+        held fixed: the electrostatics solve is linear in the potential).
+        Keys index ``self.params`` (e.g. "eps")."""
+        return self._tangent_impl(
+            "potential", self._linearize_potential,
+            self.options["electrostaticsLinearSolver"], param_tangents)
+
+    def solve_adjoint(self, functional, param_keys) -> dict:
+        """Reverse-mode gradient of a scalar functional of the potential
+        with respect to parameter fields (one transposed solve)."""
+        return self._adjoint_impl(
+            "potential", self._linearize_potential,
+            self.options["electrostaticsLinearSolver"], functional,
+            param_keys)
+
+    def solve_mc(self, param_key: str, samples, niter: int = 20):
+        """Potential re-solves over a batch of parameter fields (e.g. the
+        dielectric constant's uncertainty)."""
+        return self._mc_impl(
+            "potential", self._linearize_potential,
+            self.options["electrostaticsLinearSolver"], param_key, samples,
+            niter)
 
     def _interior(self, x):
         return x[: self.mesh.n_interior_cells].cpu().numpy()

@@ -26,13 +26,16 @@ pressure-velocity step (``advanceCoupled``), Anderson acceleration and the
 JFNK Newton endgame (``advanceNewton``), the mask form of the immersed
 boundary in the SIMPLE step (as in the JAX package, not in
 ``advanceCoupled`` or the Newton residual) and the force and flux
-integrals.  The stencil form of the immersed boundary, the FMG
-prolongation, tangents and adjoints come later.
+integrals; the sensitivities (``solve_tangent``, ``solve_tangent_force``,
+``solve_adjoint``, ``solve_adjoint_force``: the tangent and adjoint fixed
+points of the SIMPLE map at the converged state).  The stencil form of the
+immersed boundary and the FMG prolongation come later.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import sys
 import time
@@ -55,6 +58,7 @@ from ..ops import bell
 from ..exceptions import ConfigError
 from .base import Model, ResidualHistory, freeze, pack, unpack
 from .newton import NewtonInner
+from .sensitivity import single_device
 
 
 class FlowBC(BoundaryCondition):
@@ -344,7 +348,13 @@ class FlowModel(Model):
 
     # ------------------------------------------------------------------
 
-    def _build_step(self):
+    def _build_step(self, implicit=False):
+        """The SIMPLE step.  ``implicit=True`` solves through
+        ``solve_fn_implicit``, so ``torch.func.jvp`` of the whole step gives
+        exact tangents (``solve_tangent``); ``implicit="transposable"``
+        also makes its solves reverse-differentiable (``solve_adjoint``).
+        The primal path keeps the plain solves (``fvm_tpu/models/flow.py:
+        416-440``)."""
         opts = self.options
         urf_v = float(opts["momentumURF"])
         urf_p = float(opts["pressureURF"])
@@ -352,8 +362,14 @@ class FlowModel(Model):
         n_corr = int(opts.get("nPressureCorrectors", 1))
         scheme = opts["convectionScheme"]
         l1_norm = str(opts.get("residualNorm", "L2")).upper() == "L1"
-        msolve = opts["momentumLinearSolver"].solve_fn
-        psolve = opts["pressureLinearSolver"].solve_fn
+        mom, pres = opts["momentumLinearSolver"], opts["pressureLinearSolver"]
+        if implicit:
+            tr = implicit == "transposable"
+            msolve = functools.partial(mom.solve_fn_implicit, transposable=tr)
+            psolve = functools.partial(pres.solve_fn_implicit,
+                                       transposable=tr)
+        else:
+            msolve, psolve = mom.solve_fn, pres.solve_fn
 
         # the step holds its model weakly: the model holds the step and,
         # through its runners, the CUDA graphs captured from it, so a strong
@@ -1344,24 +1360,202 @@ class FlowModel(Model):
         return float(self._sum_group(self._group(group_name),
                                      self.state["massFlux"]))
 
+    @staticmethod
+    def _face_force(m, V, p, mu, grad_coeff=None):
+        """Per-face force, (nf, dim): pressure + viscous."""
+        mu_f = disc.harmonic_face_gamma(m, mu)
+        gradV = (gradient(m, grad_coeff, V) if grad_coeff is not None
+                 else None)
+        dflux = disc.diffusion_flux(m, V, mu_f, gradV)
+        p_f = assembly.cells_to_faces_distance_weighted(m, p)
+        return dflux.F + p_f[:, None] * m.face_area
+
+    def _group_force(self, g, V, p, mu):
+        """The force on boundary group ``g`` from (V, p, mu), (dim,)."""
+        args = (V, p, mu)
+        if "grad_coeff" in self.params:
+            args = args + (self.params["grad_coeff"],)
+        return self._sum_group(g, self._map_mesh(self._face_force, *args))
+
     def getMomentumFluxIntegral(self, group_name):
         """Force on a boundary group, (dim,) numpy: pressure + viscous
         (reference: getMomentumFluxIntegral)."""
+        return self._group_force(self._group(group_name),
+                                 self.state["velocity"],
+                                 self.state["pressure"],
+                                 self.params["mu"]).cpu().numpy()
 
-        def face_force(m, V, p, mu, grad_coeff=None):
-            mu_f = disc.harmonic_face_gamma(m, mu)
-            gradV = (gradient(m, grad_coeff, V) if grad_coeff is not None
-                     else None)
-            dflux = disc.diffusion_flux(m, V, mu_f, gradV)
-            p_f = assembly.cells_to_faces_distance_weighted(m, p)
-            return dflux.F + p_f[:, None] * m.face_area
+    # --- sensitivities (the reference builds FlowModel with the Tangent
+    # atype, models.cpp:10-74; here the tangent and adjoint fixed points of
+    # the SIMPLE step map at the converged state, fvm_tpu/models/flow.py:
+    # 861-1168) -----------------------------------------------------------
 
-        args = (self.state["velocity"], self.state["pressure"],
-                self.params["mu"])
-        if "grad_coeff" in self.params:
-            args = args + (self.params["grad_coeff"],)
-        F = self._map_mesh(face_force, *args)
-        return self._sum_group(self._group(group_name), F).cpu().numpy()
+    def _step_map(self, step_t):
+        """G(s, p_sub, b_sub) -> the next state, with the time levels held
+        (they are inputs of the current step, not iterates)."""
+        params, bcvals = self.params, self._resolve_bcvals()
+        time_keys = [k for k in self.state if k.endswith(("_N1", "_N2"))]
+        mesh = self.mesh
+
+        def G(s, p_sub, b_sub):
+            new_s, _ = step_t(mesh, dict(params, **p_sub), s,
+                              dict(bcvals, **b_sub))
+            return dict(new_s, **{k: s[k] for k in time_keys})
+
+        return G
+
+    def _tangent_state(self, param_tangents, bc_tangents, niter):
+        """Tangent of the converged SIMPLE fixed point s* = G(s*, p): ds
+        solves (I - dG/ds) ds = dG/dp . dp, reached by iterating the linear
+        fixed point ds <- jvp(G)(ds, dp) ``niter`` times from 0 (it
+        contracts at SIMPLE's own rate).  Each iteration runs
+        ``torch.func.jvp`` through a step whose solves are implicit, so the
+        tangent systems are solved by the same solvers.  Returns the whole
+        tangent state."""
+        if not self._initialized:
+            raise ConfigError("call init() + advance() before solve_tangent")
+        single_device(self, "solve_tangent")
+        bcvals = self._resolve_bcvals()
+        base, tans = self._tangent_inputs(param_tangents, bc_tangents, bcvals)
+        G = self._step_map(self._build_step(implicit=True))
+        state = self.state
+        ds = {k: torch.zeros_like(v) for k, v in state.items()}
+        for _ in range(niter):
+            _, ds = torch.func.jvp(G, (state, base[0], base[1]),
+                                   (ds, tans[0], tans[1]))
+        return ds
+
+    def solve_tangent(self, param_tangents=None, bc_tangents=None,
+                      niter: int = 50) -> dict:
+        """Forward sensitivity d(V, p)/d(params, BCs) . direction at the
+        converged state.  ``param_tangents``: 'mu' / 'rho' (scalar,
+        (n_interior,) or full shape); ``bc_tangents`` keyed
+        'group:entry' (e.g. 'top:specifiedXVelocity').  ``niter``: tangent
+        iterations (about SIMPLE's iterations to convergence).  Returns
+        {'velocity': (n_interior, dim), 'pressure': (n_interior,)}."""
+        ds = self._tangent_state(param_tangents, bc_tangents, niter)
+        n = self.mesh.n_interior_cells
+        return {"velocity": ds["velocity"][:n].cpu().numpy(),
+                "pressure": ds["pressure"][:n].cpu().numpy()}
+
+    def solve_tangent_force(self, group_name, param_tangents=None,
+                            bc_tangents=None, niter: int = 50):
+        """d(boundary force)/d(params, BCs) . direction on a group: the
+        chain rule of ``getMomentumFluxIntegral`` through the state
+        tangent, (dim,) numpy."""
+        g = self._group(group_name)
+        ds = self._tangent_state(param_tangents, bc_tangents, niter)
+        _, tans = self._tangent_inputs(param_tangents, bc_tangents,
+                                       self._resolve_bcvals())
+        mu0 = self.params["mu"]
+        dmu = tans[0].get("mu", torch.zeros_like(mu0))
+        _, dF = torch.func.jvp(
+            lambda V, p, mu: self._group_force(g, V, p, mu),
+            (self.state["velocity"], self.state["pressure"], mu0),
+            (ds["velocity"], ds["pressure"], dmu))
+        return dF.cpu().numpy()
+
+    def _adjoint_grads(self, functional, param_keys, bc_keys, niter):
+        """Reverse mode at the converged fixed point s* = G(s*, p): the
+        adjoint u solves (I - dG/ds^T) u = dJ/ds by the transposed fixed
+        point u <- vjp(G)(u) + dJ/ds, ``niter`` times (SIMPLE's rate), and
+        dJ/dp = dJ/dp|_explicit + (dG/dp)^T u: every cell of every
+        requested parameter from one reverse sweep.  The step's graph is
+        built once at s* and each sweep runs ``torch.autograd.grad`` over
+        it (``retain_graph``); its transposable solves run the transposed
+        solves.  ``functional(mesh, state, params, bcvals) -> scalar``.
+        Non-owned rows are masked (none on one device) and the time levels
+        held, as in the JAX package."""
+        if not self._initialized:
+            raise ConfigError("call init() + advance() before solve_adjoint")
+        single_device(self, "solve_adjoint")
+        mesh = self.mesh
+        bcvals = self._resolve_bcvals()
+        for k in param_keys:
+            if k not in self.params:
+                raise ConfigError(
+                    f"FlowModel.solve_adjoint: unknown parameter {k!r}")
+        for k in bc_keys:
+            if k not in bcvals:
+                raise ConfigError(
+                    f"FlowModel.solve_adjoint: unknown BC entry {k!r}")
+        G = self._step_map(self._build_step(implicit="transposable"))
+        n_cells = mesh.n_cells
+        owned = torch.arange(n_cells, device=mesh.device) < mesh.n_owned_cells
+        # cells with no face (padding) are frozen: their cotangent is 0
+        alive = mesh.cf_mask.any(dim=0)
+
+        def mask(t, keep):
+            return {k: torch.where(keep.reshape((n_cells,) + (1,) * (
+                        a.ndim - 1)), a, 0.0)
+                    if a.ndim >= 1 and a.shape[0] == n_cells else a
+                    for k, a in t.items()}
+
+        def grads(outs, inputs, cot):
+            got = torch.autograd.grad(outs, list(inputs.values()), cot,
+                                      retain_graph=True, allow_unused=True)
+            return {k: torch.zeros_like(v) if g is None else g
+                    for (k, v), g in zip(inputs.items(), got)}
+
+        with torch.enable_grad():
+            s_in = {k: v.detach().clone().requires_grad_(True)
+                    for k, v in self.state.items()}
+            p_in = {k: self.params[k].detach().clone().requires_grad_(True)
+                    for k in param_keys}
+            b_in = {k: bcvals[k].detach().clone().requires_grad_(True)
+                    for k in bc_keys}
+            J = functional(mesh, s_in, dict(self.params, **p_in),
+                           dict(bcvals, **b_in))
+            gJ = grads(J, {**s_in, **p_in, **b_in}, None)
+            out = G(s_in, p_in, b_in)
+        gs = mask({k: gJ[k] for k in s_in}, owned)
+        gs.update(mask({k: gs[k] for k in ("velocity", "pressure")}, alive))
+        keys = [k for k in out if out[k].requires_grad]
+        outs = [out[k] for k in keys]
+        u = gs
+        for _ in range(niter):
+            us = mask(grads(outs, s_in, [u[k] for k in keys]), owned)
+            u = {k: us[k] + gs[k] for k in gs}
+        upb = grads(outs, {**p_in, **b_in}, [u[k] for k in keys])
+        res = {k: bck.fold_ghosts(mesh, upb[k] + gJ[k]).cpu().numpy()
+               for k in param_keys}
+        res.update({k: (upb[k] + gJ[k]).cpu().numpy() for k in bc_keys})
+        return res
+
+    def solve_adjoint(self, functional, param_keys=("mu",), bc_keys=(),
+                      niter: int = 50) -> dict:
+        """Reverse-mode gradient of ``functional(V_interior, p_interior)``
+        with respect to parameter fields ('mu' / 'rho', on interior cells)
+        and BC values ('group:entry', per face) at the converged state,
+        from one adjoint sweep (the reference's Tangent atype is forward
+        only).  ``niter`` about SIMPLE's iteration count."""
+        n = self.mesh.n_interior_cells
+        return self._adjoint_grads(
+            lambda m, s, p, b: functional(s["velocity"][:n],
+                                          s["pressure"][:n]),
+            param_keys, bc_keys, niter)
+
+    def solve_adjoint_force(self, group_name, direction=None,
+                            param_keys=("mu",), bc_keys=(),
+                            niter: int = 50) -> dict:
+        """Reverse-mode d(F . direction)/d(params, BCs) of the force on a
+        boundary group: the gradient of the drag with respect to the whole
+        viscosity field and every BC knob from one adjoint sweep."""
+        g = self._group(group_name)
+        mesh = self.mesh
+        if direction is None:
+            direction = [1.0] + [0.0] * (mesh.dim - 1)
+        dvec = torch.as_tensor(np.asarray(direction, np.float64)).to(
+            mesh.device, mesh.dtype)
+
+        def functional(m, s, params, b):
+            args = (s["velocity"], s["pressure"], params["mu"])
+            if "grad_coeff" in params:
+                args = args + (params["grad_coeff"],)
+            F = self._face_force(m, *args)
+            return (self._sum_group(g, F) * dvec).sum()
+
+        return self._adjoint_grads(functional, param_keys, bc_keys, niter)
 
     def getVelocity(self):
         """Interior-cell velocities as a host numpy (n, dim) array."""

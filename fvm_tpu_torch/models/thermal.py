@@ -11,9 +11,12 @@ outflow), 'Convective' (heatTransferCoefficient + farFieldTemperature),
 + radiative) and 'Periodic' (the implicit wrap of ``Mesh.make_periodic``
 pairs); double-shell interfaces (contact resistance, thermal jump layers:
 ``model.interface[name]``, core/interfaces.py); the mask form of the
-immersed boundary and ``getHeatFluxIntegral``.  The stencil form of the
-immersed boundary (ROADMAP queue 1 item 9) and tangents (item 5) come
-later.
+immersed boundary and ``getHeatFluxIntegral``; sensitivities (``TangentMixin``: tangent,
+adjoint, Monte-Carlo and polynomial chaos of T with respect to "k_cell",
+"rho_cp" and "src") and the ``differentiable`` option, whose steps solve
+through ``solve_fn_implicit`` so ``torch.func.jvp`` and reverse mode
+through a whole step give exact sensitivities.  The stencil form of the
+immersed boundary (ROADMAP queue 1 item 9) comes later.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..ops.gradients import ls_gradient_coefficients, gradient
 from ..linear import AMG, BiCGStab
 from ..exceptions import ConfigError
 from .base import Model, ResidualHistory
+from .sensitivity import TangentMixin
 
 STEFAN_BOLTZMANN = 5.670374419e-8
 
@@ -82,15 +86,21 @@ class ThermalModelOptions(ModelOptions):
         "absoluteTolerance": 1e-16,
         "urf": 1.0,
         "verbose": True,
+        # implicitly differentiated solves, so torch.func.jvp (and reverse
+        # mode) through a step gives exact sensitivities (the Tangent
+        # atype's role)
+        "differentiable": False,
     }
 
 
-class ThermalModel(Model):
+class ThermalModel(TangentMixin, Model):
     # double-shell interfaces (contact resistance, thermal jump layers;
     # the reference's BatteryLinearizeThermalInterface.h): the default
     # closure is the continuous interface (A = 1, B = 0)
     _supports_interfaces = True
     name = "ThermalModel"
+    # the unknown the sensitivities differentiate (TangentMixin)
+    var = "T"
 
     def __init__(self, mesh):
         super().__init__(mesh)
@@ -106,11 +116,6 @@ class ThermalModel(Model):
 
     def init(self) -> None:
         mesh = self.mesh
-        if self.options.get("differentiable"):
-            raise ConfigError(
-                "ThermalModel: 'differentiable' (implicit-differentiation "
-                "solves for tangents) is not ported yet (ROADMAP queue 1 "
-                "item 5)")
         self.state = {
             "T": self._cell_field(self.vc, "initialTemperature"),
             "massFlux": self._full_faces(0.0),
@@ -247,6 +252,8 @@ class ThermalModel(Model):
     def _build_step(self):
         solver = self.options["linearSolver"]
         urf = float(self.options["urf"])
+        solve = (solver.solve_fn_implicit
+                 if self.options.get("differentiable") else solver.solve_fn)
 
         # the step holds its model weakly: the model holds the step and,
         # through its runners, the CUDA graphs captured from it, so a strong
@@ -256,7 +263,7 @@ class ThermalModel(Model):
         def step(mesh, params, state, bcvals):
             A, r = me._linearize(mesh, params, state, bcvals)
             rnorm = A.norm(r)
-            dx, stats = solver.solve_fn(A, r, torch.zeros_like(r))
+            dx, _ = solve(A, r, torch.zeros_like(r))
             state = dict(state)
             state["T"] = state["T"] + urf * dx
             return state, {"rnorm": rnorm}

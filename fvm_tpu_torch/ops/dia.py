@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import dia_kernel
 
@@ -159,12 +160,29 @@ def build_coef(dia: DIAInfo, off, mask):
     pass per assembled matrix instead of one per mv."""
     offv = torch.where(mask, off, 0.0)
     D, n = len(dia.offsets), off.shape[1]
-    coef = torch.stack(
-        [torch.where(dia.bucket == i, offv, 0.0).sum(dim=0) for i in range(D)],
-        out=dia_kernel.empty_coef(D, n, offv.dtype, offv.device),
-    )
+    rows = [torch.where(dia.bucket == i, offv, 0.0).sum(dim=0)
+            for i in range(D)]
+    if dia_kernel.tracked(off):
+        # ``out=`` takes no derivative: stack, then pad each row to the
+        # layout's stride (a fresh, aligned storage) and view its n columns
+        ld = dia_kernel.coef_ld(n)
+        coef = F.pad(torch.stack(rows), (0, ld - n))[:, :n]
+    else:
+        coef = torch.stack(rows, out=dia_kernel.empty_coef(
+            D, n, offv.dtype, offv.device))
     fb_vals = offv[dia.fb_slots, dia.fb_rows]
     return coef, fb_vals
+
+
+def transpose_dia(offsets, diag, coef, fb_rows=None, fb_cols=None,
+                  fb_vals=None):
+    """A^T of a DIA operator: (offsets, diag, coef, fb_rows, fb_cols,
+    fb_vals) with the offsets negated and sorted, the coefficient rows
+    shifted and zero-filled in the kernel's layout
+    (``dia_kernel.transpose_coef``) and the fallback entries' rows and
+    columns swapped (still applied by ``apply_fallback``)."""
+    t_offs, t_coef = dia_kernel.transpose_coef(offsets, coef)
+    return t_offs, diag, t_coef, fb_cols, fb_rows, fb_vals
 
 
 def fused_apply(offsets, diag, coef, x, b=None, omega=None, mode="mv",
@@ -208,15 +226,21 @@ def dia_apply_coef(dia: DIAInfo, diag, coef, fb_vals, x, b=None, omega=None,
 
 
 class DIAMatrix:
-    """Pure-DIA sparse matrix: diag (n,) + per-offset coefficients (D, n).
+    """DIA sparse matrix: diag (n,) + per-offset coefficients (D, n), and
+    optional fallback entries ``fallback`` = (rows, cols, vals).
 
     Used for AMG coarse levels built by structured (index-pairing)
-    coarsening.  Same solver-facing interface as ELLMatrix."""
+    coarsening (no fallback) and for the transpose of a DIA ``ELLMatrix``
+    (``ELLMatrix.transposed``).  Same solver-facing interface as
+    ELLMatrix."""
 
-    def __init__(self, diag, coef, offsets):
+    def __init__(self, diag, coef, offsets, fallback=None):
         self.diag = diag
         self.coef = coef
         self.offsets = tuple(int(d) for d in offsets)
+        self.fallback = fallback
+        fb = (None, None, None) if fallback is None else fallback
+        self._fb = dict(zip(("fb_rows", "fb_cols", "fb_vals"), fb))
 
     @property
     def n(self):
@@ -235,7 +259,7 @@ class DIAMatrix:
             self.diag if diag_ok else self.diag.clone(
                 memory_format=torch.contiguous_format),
             self.coef if coef_ok else dia_kernel.pack_coef(self.coef),
-            self.offsets)
+            self.offsets, self.fallback)
 
     def dot(self, a, b):
         return torch.sum(a * b)
@@ -244,18 +268,19 @@ class DIAMatrix:
         return torch.sqrt(torch.sum(x * x))
 
     def mv(self, x):
-        return fused_apply(self.offsets, self.diag, self.coef, x, mode="mv")
+        return fused_apply(self.offsets, self.diag, self.coef, x, mode="mv",
+                           **self._fb)
 
     def residual(self, x, b):
         return fused_apply(self.offsets, self.diag, self.coef, x, b=b,
-                           mode="residual")
+                           mode="residual", **self._fb)
 
     def diag_solve(self, r):
         return r / (self.diag if r.ndim == 1 else self.diag[:, None])
 
     def jacobi_step(self, x, b, omega=1.0):
         return fused_apply(self.offsets, self.diag, self.coef, x, b=b,
-                           omega=omega, mode="jacobi")
+                           omega=omega, mode="jacobi", **self._fb)
 
     def to_dense(self):
         n = self.n
@@ -266,4 +291,7 @@ class DIAMatrix:
                 D = D + torch.diag(c[: n - d], d)
             elif d < 0 and -d < n:
                 D = D + torch.diag(c[-d:], d)
+        if self.fallback is not None:
+            rows, cols, vals = self.fallback
+            D = D.index_put((rows, cols), vals, accumulate=True)
         return D

@@ -50,10 +50,20 @@ every coefficient row starts 16-byte aligned; ``diag`` is contiguous and
 
 Dispatch is by the tensor's device: a CUDA tensor launches a kernel (or
 raises), a CPU tensor takes the plain version.  There is no other switch.
+
+Derivatives (the sensitivities, ``models/sensitivity.py``): torch
+differentiates the plain version of a CPU tensor.  A CUDA ``mv`` or
+``residual`` whose derivative may be asked goes through ``DiaStencil``,
+whose rules launch the kernel again: the jvp on the tangent's diagonal
+and coefficients and on dx, the backward on the transposed operator
+(``transpose_coef``: offsets negated, rows shifted); ``jacobi`` runs
+only inside solves, which are differentiated implicitly
+(``linear/base.solve_fn_implicit``), and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -62,6 +72,7 @@ import subprocess
 import threading
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 
 MODES = ("mv", "residual", "jacobi")
@@ -134,12 +145,22 @@ def coef_packed(coef: torch.Tensor) -> bool:
     return (coef.ndim == 2 and coef.stride(1) == 1
             and coef.stride(0) % COEF_ALIGN == 0
             and coef.stride(0) >= coef.shape[1]
-            and coef.data_ptr() % 16 == 0)
+            and _aligned(coef))
 
 
 def diag_ready(diag: torch.Tensor) -> bool:
     """Whether ``diag`` is contiguous with a 16-byte aligned base."""
-    return diag.is_contiguous() and diag.data_ptr() % 16 == 0
+    return diag.is_contiguous() and _aligned(diag)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether the base is 16-byte aligned; False for a ``torch.func``
+    wrapper, which has no storage of its own (the Function that takes it
+    brings the unwrapped tensor to the layout)."""
+    try:
+        return t.data_ptr() % 16 == 0
+    except RuntimeError:
+        return False
 
 
 def dia_stencil_plain(offsets, mode, coef, diag, x, b=None, omega=None):
@@ -327,7 +348,26 @@ def _launch(offsets, mode, coef, diag, x, b, omega, variant=None):
     dia_stencil.launches[mode] += 1
     key = (_DTYPES[x.dtype][0], variant, mode, n, D)
     dia_stencil.shapes[key] = dia_stencil.shapes.get(key, 0) + 1
+    if _scopes:
+        key = (_scopes[-1], mode)
+        dia_stencil.scoped[key] = dia_stencil.scoped.get(key, 0) + 1
     return y
+
+
+_scopes: list = []
+
+
+@contextlib.contextmanager
+def launch_scope(name: str):
+    """Count the launches made inside the block also under
+    ``dia_stencil.scoped[(name, mode)]`` (the innermost scope): which part
+    of a computation launched them, e.g. a tangent's dA x products and an
+    adjoint's transposed solves (``linear/base.py``)."""
+    _scopes.append(name)
+    try:
+        yield
+    finally:
+        _scopes.pop()
 
 
 def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
@@ -336,14 +376,190 @@ def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
     ``coef`` (D, n) and ``diag`` (n,) are the matrix's prepared operands
     in the kernel's layout (``ELLMatrix.prepare``, ``DIAMatrix.prepare``).
     A CUDA ``x`` launches a CUDA kernel (raising on anything it does not
-    take); a CPU ``x`` runs :func:`dia_stencil_plain`."""
+    take); a CPU ``x`` runs :func:`dia_stencil_plain`.
+
+    Derivatives: on a CPU tensor torch differentiates the plain version.
+    On a CUDA tensor whose derivative may be asked (``tracked``), ``mv``
+    and ``residual`` go through :class:`DiaStencil`, whose forward- and
+    reverse-mode rules launch the kernel again; ``jacobi`` runs only inside
+    solves and raises there."""
     if mode not in _MODE_INDEX:
         raise ValueError(f"dia_stencil: unknown mode {mode!r}")
     if x.device.type == "cpu":
         return dia_stencil_plain(offsets, mode, coef, diag, x, b=b, omega=omega)
     if x.device.type != "cuda":
         raise ValueError(f"dia_stencil: unsupported device {x.device}")
+    if tracked(coef, diag, x, b):
+        if mode == "jacobi":
+            raise RuntimeError(
+                "dia_stencil: mode 'jacobi' has no derivative (it runs only "
+                "inside solves, which are differentiated implicitly)")
+        return DiaStencil.apply(coef, diag, x, b, tuple(offsets), mode)
     return _launch(offsets, mode, coef, diag, x, b, omega)
+
+
+def tracked(*tensors) -> bool:
+    """Whether a derivative may be asked of an op on these operands:
+    reverse mode (grad enabled and an operand requiring it), a forward-mode
+    dual level, or a ``torch.func`` transform active; never inside
+    ``untracked``."""
+    if _untracked:
+        return False
+    if fwAD._current_level >= 0 or _transforms_active():
+        return True
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t is not None and t.requires_grad:
+                return True
+    return False
+
+
+_transforms_active = torch._C._are_functorch_transforms_active
+_untracked: list = []
+
+
+@contextlib.contextmanager
+def untracked():
+    """Inside, ``tracked`` is False: the forward of an autograd Function,
+    whose operands are plain tensors and whose derivative is the Function's
+    own rule (some torch versions report a ``torch.func`` transform as
+    active there)."""
+    _untracked.append(True)
+    try:
+        yield
+    finally:
+        _untracked.pop()
+
+
+def transpose_coef(offsets, coef):
+    """The DIA coefficients of A^T: (offsets, coef) with the offsets
+    negated and sorted, and each coefficient row shifted, zero-filled, in
+    the kernel's layout.  (A^T)[i, i - d] = A[i - d, i] = coef_d[i - d]."""
+    n = coef.shape[1]
+    order = sorted(range(len(offsets)), key=lambda j: -int(offsets[j]))
+    out = empty_coef(len(order), n, coef.dtype, coef.device)
+    out.zero_()
+    for row, j in enumerate(order):
+        d = int(offsets[j])
+        if 0 <= d < n:
+            out[row, d:] = coef[j, : n - d]
+        elif -n < d < 0:
+            out[row, : n + d] = coef[j, -d:]
+    return tuple(-int(offsets[j]) for j in order), out
+
+
+def stencil_jvp(call, offsets, mode, coef, diag, x, dcoef, ddiag, dx, db):
+    """Forward-mode rule of the ``mv`` / ``residual`` op: d(Ax) = dA x +
+    A dx, two calls ``call(offsets, mode, coef, diag, x, b)`` of the op
+    (the kernel's, or the plain version's in the tests): one on the
+    tangent's diagonal and coefficients, one on dx.  ``residual`` is
+    d(b - Ax) = (db - A dx) - dA x.  Absent tangents (None) are zero."""
+    dax = None
+    if dcoef is not None or ddiag is not None:
+        dax = call(offsets, "mv",
+                   torch.zeros_like(coef) if dcoef is None else dcoef,
+                   torch.zeros_like(diag) if ddiag is None else ddiag,
+                   x, None)
+    if mode == "mv":
+        out = None if dx is None else call(offsets, "mv", coef, diag, dx,
+                                            None)
+    elif dx is None:
+        out = db
+    else:
+        out = call(offsets, "residual", coef, diag, dx,
+                   torch.zeros_like(x) if db is None else db)
+    if dax is not None:
+        out = (dax if mode == "mv" else -dax) if out is None else (
+            out + dax if mode == "mv" else out - dax)
+    return torch.zeros_like(x) if out is None else out
+
+
+def stencil_vjp(call, offsets, mode, coef, diag, x, gy, need):
+    """Reverse-mode rule of the ``mv`` / ``residual`` op for the inputs
+    (coef, diag, x, b) flagged in ``need``: x-bar = A^T y-bar is one call
+    of the op on the transposed operator (``transpose_coef``); diag-bar =
+    y-bar * x and coef-bar[d, i] = y-bar[i] x[i + d] (0 outside [0, n))
+    are elementwise, as the JAX package computes them in XLA outside its
+    Pallas kernel; ``residual`` negates them and gives b-bar = y-bar."""
+    neg = mode == "residual"
+    gc = gd = gx = gb = None
+    if need[2]:
+        t_offs, t_coef = transpose_coef(offsets, coef)
+        gx = call(t_offs, "mv", t_coef, diag, gy, None)
+        gx = -gx if neg else gx
+    if need[1]:
+        gd = gy * x if x.ndim == 1 else (gy * x).sum(dim=1)
+        gd = -gd if neg else gd
+    if need[0]:
+        n = x.shape[0]
+        maxd = max((abs(int(d)) for d in offsets), default=0)
+        xp = F.pad(x, (maxd, maxd) if x.ndim == 1 else (0, 0, maxd, maxd))
+        rows = [gy * xp[maxd + int(d): maxd + int(d) + n] for d in offsets]
+        gc = torch.stack([r if x.ndim == 1 else r.sum(dim=1) for r in rows])
+        gc = -gc if neg else gc
+    if need[3] and neg:
+        gb = gy
+    return gc, gd, gx, gb
+
+
+def stencil_function(apply):
+    """An autograd Function of the ``mv`` / ``residual`` op whose forward
+    calls ``apply(offsets, mode, coef, diag, x, b, omega)`` on operands
+    brought to the kernel's layout, and whose derivative rules call the
+    Function again (under ``torch.func`` the rules see wrapped tensors,
+    which only a Function's forward unwraps).  ``DiaStencil`` is the one
+    over the kernel; the tests build one over the plain version to hold
+    the rules on the CPU."""
+
+    class _Stencil(torch.autograd.Function):
+        @staticmethod
+        def forward(coef, diag, x, b, offsets, mode):
+            if not coef_packed(coef):
+                coef = pack_coef(coef)
+            if not diag_ready(diag):
+                diag = diag.clone(memory_format=torch.contiguous_format)
+            with untracked():
+                return apply(offsets, mode, coef, diag, x.contiguous(),
+                             None if b is None else b.contiguous(), None)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            coef, diag, x, _, offsets, mode = inputs
+            ctx.offsets, ctx.mode = offsets, mode
+            ctx.save_for_forward(coef, diag, x)
+            ctx.save_for_backward(coef, diag, x)
+
+        @staticmethod
+        def jvp(ctx, dcoef, ddiag, dx, db, *_):
+            coef, diag, x = ctx.saved_tensors
+            with launch_scope("stencil jvp"):
+                return stencil_jvp(_call, ctx.offsets, ctx.mode, coef, diag,
+                                   x, dcoef, ddiag, dx, db)
+
+        @staticmethod
+        def backward(ctx, gy):
+            coef, diag, x = ctx.saved_tensors
+            with launch_scope("stencil vjp"):
+                grads = stencil_vjp(_call, ctx.offsets, ctx.mode, coef, diag,
+                                    x, gy, ctx.needs_input_grad[:4])
+            return (*grads, None, None)
+
+    def _call(offsets, mode, coef, diag, x, b):
+        return _Stencil.apply(coef, diag, x, b, offsets, mode)
+
+    return _Stencil
+
+
+def _kernel_apply(offsets, mode, coef, diag, x, b, omega):
+    if x.device.type != "cuda":
+        raise ValueError(f"dia_stencil: the kernel's derivative needs a "
+                         f"CUDA tensor, got {x.device}")
+    return _launch(offsets, mode, coef, diag, x, b, omega)
+
+
+# the op with derivative rules, over the kernel (CUDA tensors only: it
+# launches the kernel or raises, never the plain version)
+DiaStencil = stencil_function(_kernel_apply)
 
 
 # launches of the CUDA kernels per mode and per (element type "f32" /
@@ -353,6 +569,7 @@ def dia_stencil(offsets, mode, coef, diag, x, b=None, omega=None):
 # (the plain version counts nothing)
 dia_stencil.launches = {m: 0 for m in MODES}
 dia_stencil.shapes = {}
+dia_stencil.scoped = {}
 
 
 def variant_launches() -> dict:
@@ -383,3 +600,4 @@ def reset_launches() -> None:
     for m in MODES:
         dia_stencil.launches[m] = 0
     dia_stencil.shapes.clear()
+    dia_stencil.scoped.clear()

@@ -21,9 +21,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from .dia import build_coef, dia_apply_coef
+from .dia import DIAMatrix, build_coef, dia_apply_coef, index_tensor, transpose_dia
 from .dia_kernel import diag_ready
 
 
@@ -41,6 +42,10 @@ class ELLMatrix:
     # rare-offset fallback values.  Set by prepare()
     dia_coef: torch.Tensor | None = None
     dia_fb_vals: torch.Tensor | None = None
+    # entries outside the slot table, (rows, cols, vals): a transpose's
+    # entries whose mirror slot is absent (``transposed``), added by the
+    # gather-ELL products
+    scatter: tuple | None = None
 
     replace = dataclasses.replace
 
@@ -119,6 +124,56 @@ class ELLMatrix:
 
         return A2, rhs
 
+    def transposed(self):
+        """A^T as an operator, uncondensed (the JAX package's
+        ``TransposedOperator`` applies the uncondensed transpose).
+
+        With DIA structure it is a ``DIAMatrix`` from ``transpose_dia``
+        (offsets negated, coefficient rows shifted, fallback rows and
+        columns swapped), so its products launch ``dia_stencil``.  Without
+        it, a gather-ELL matrix on the same slot table: each entry moves to
+        its mirror slot (the slot of its column's row that points back),
+        and an entry whose mirror is absent (a Dirichlet or flux ghost
+        row's cleared slot is still a slot; the extra slots of shell ghosts
+        and periodic pairs may have none) goes to ``scatter``."""
+        if self.dia is not None:
+            A = self.prepare()
+            d = A.dia
+            offs, diag, coef, fr, fc, fv = transpose_dia(
+                d.offsets, A.diag, A.dia_coef, d.fb_rows, d.fb_cols,
+                A.dia_fb_vals)
+            return DIAMatrix(diag, coef, offs, (fr, fc, fv))
+        n = self.n
+        cols = self.cols.cpu().numpy()
+        mask = self.mask.cpu().numpy()
+        sk, sc = np.nonzero(mask)
+        tgt = cols[sk, sc]
+        # slot keys (row, col) -> sorted; the mirror of (row c, col j) is
+        # the slot keyed (j, c)
+        keys = sc.astype(np.int64) * n + tgt
+        order = np.argsort(keys, kind="stable")
+        want = tgt.astype(np.int64) * n + sc
+        pos = np.minimum(np.searchsorted(keys[order], want), len(keys) - 1)
+        found = keys[order][pos] == want
+        mk, mj = sk[order][pos], sc[order][pos]
+        dev = self.off.device
+        offv = torch.where(self.mask, self.off, 0.0)
+        src = (index_tensor(sk[found], dev), index_tensor(sc[found], dev))
+        dst = (index_tensor(mk[found], dev), index_tensor(mj[found], dev))
+        # accumulate: two slots of one row pointing at one column share
+        # the first mirror
+        off_t = torch.zeros_like(offv).index_put(dst, offv[src],
+                                                 accumulate=True)
+        mask_t = torch.zeros_like(self.mask).index_put(
+            dst, torch.ones((), dtype=torch.bool, device=dev))
+        lone = ~found
+        scatter = None
+        if lone.any():
+            scatter = (index_tensor(tgt[lone], dev), index_tensor(sc[lone], dev),
+                       offv[index_tensor(sk[lone], dev),
+                            index_tensor(sc[lone], dev)])
+        return ELLMatrix(self.diag, off_t, self.cols, mask_t, scatter=scatter)
+
     def dot(self, a, b):
         return torch.sum(a * b)
 
@@ -131,9 +186,15 @@ class ELLMatrix:
         gather_ell_ops[key] = gather_ell_ops.get(key, 0) + 1
         off = torch.where(self.mask, self.off, 0.0)
         if x.ndim == 1:
-            return self.diag * x + (off * x[self.cols]).sum(dim=0)
-        return (self.diag[:, None] * x
-                + (off[:, :, None] * x[self.cols]).sum(dim=0))
+            y = self.diag * x + (off * x[self.cols]).sum(dim=0)
+        else:
+            y = (self.diag[:, None] * x
+                 + (off[:, :, None] * x[self.cols]).sum(dim=0))
+        if self.scatter is not None:
+            rows, cols, vals = self.scatter
+            y = y.index_add(0, rows, vals * x[cols] if x.ndim == 1
+                            else vals[:, None] * x[cols])
+        return y
 
     def mv(self, x):
         """Sparse matrix-vector product; x is (n,) or (n, m)."""

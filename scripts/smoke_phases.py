@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Some of ``chip_smoke.py``'s phases 18-20 alone on one GPU, for
+"""Some of ``chip_smoke.py``'s phases 18-22 alone on one GPU, for
 development.
 
 Run from the repository root:  python3 scripts/smoke_phases.py 18,19
+(phase 22 alone starts from the cavity's first steps and times its rows
+itself)
 
 It builds the kernels (``chip_smoke.py``'s phase 2), runs the listed
 phases and prints their ``kernels`` rows.  It prints no device line:
@@ -25,7 +27,7 @@ def main() -> int:
     import torch
 
     phases = {int(v) for v in (sys.argv[1] if len(sys.argv) > 1
-                               else "18,19,20").split(",")}
+                               else "18,19,20,21,22").split(",")}
     if not torch.cuda.is_available():
         print("smoke_phases: needs an NVIDIA GPU", file=sys.stderr)
         return 2

@@ -175,13 +175,27 @@ def test_restart_after_chunked_advance():
 
 
 def test_tangent_only_option_raises():
-    """The JAX package's implicit-differentiation solves serve tangents
-    only; the port raises for them, naming ROADMAP queue 1 item 5."""
-    from fvm_tpu_torch.exceptions import ConfigError
-
-    m = ThermalModel(build_device_mesh(tgen.quad_2d(4, 4), device="cpu"))
-    for g in ("left", "right", "bottom", "top"):
-        m.bc[g].bc_type = "Symmetry"
-    m.options["differentiable"] = True
-    with pytest.raises(ConfigError, match="item 5"):
+    """The JAX package's implicit-differentiation solves (the
+    ``differentiable`` option) serve tangents only: the port's steps with
+    them equal the plain steps, and reverse mode through such a step
+    raises (its solves are not transposable; ``solve_adjoint`` makes its
+    own)."""
+    def model(differentiable):
+        m = ThermalModel(build_device_mesh(tgen.quad_2d(4, 4), device="cpu",
+                                           dtype="float64"))
+        m.options["verbose"] = False
+        for g in ("left", "right", "bottom", "top"):
+            m.bc[g].bc_type = "Symmetry"
+        m.bc["left"].bc_type = "SpecifiedTemperature"
+        m.bc["left"]["specifiedTemperature"] = 400.0
+        m.options["differentiable"] = differentiable
         m.init()
+        return m
+
+    plain, diff = model(False), model(True)
+    assert [r[1] for r in diff.advance(3)] == [r[1] for r in plain.advance(3)]
+    k = diff.params["k_cell"].clone().requires_grad_(True)
+    T = diff._step(diff.mesh, dict(diff.params, k_cell=k), diff.state,
+                   diff._resolve_bcvals())[0]["T"]
+    with pytest.raises(RuntimeError, match="transposable"):
+        torch.autograd.grad(T.sum(), k)

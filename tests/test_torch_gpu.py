@@ -820,3 +820,157 @@ def test_plate_flux_closure_chunk_replay_and_restart(cuda):
     assert runs[1][0] == runs[0][0] and runs[2][0] == runs[1][0]
     assert np.array_equal(runs[1][1], runs[0][1])
     assert np.array_equal(runs[2][1], runs[1][1])
+
+
+# ---- sensitivities: the kernel's derivative rules and transpose ---------
+
+def _stencil_operands(device, dtype, mode, m, n=3001, offs=(-64, -1, 1, 64)):
+    rng = np.random.default_rng(12)
+    shape = (n,) if m == 1 else (n, m)
+    t = {k: torch.as_tensor(v, dtype=getattr(torch, dtype)) for k, v in (
+        ("coef", rng.standard_normal((len(offs), n))),
+        ("diag", 2.0 + rng.random(n)), ("x", rng.standard_normal(shape)),
+        ("b", rng.standard_normal(shape)), ("dcoef",
+                                            rng.standard_normal((4, n))),
+        ("ddiag", rng.standard_normal(n)), ("dx", rng.standard_normal(shape)),
+        ("db", rng.standard_normal(shape)), ("gy",
+                                             rng.standard_normal(shape)))}
+    t = {k: v.to(device) for k, v in t.items()}
+    t["coef"] = dk.pack_coef(t["coef"])
+    if mode == "mv":
+        t["b"] = t["db"] = None
+    return offs, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("mode", ["mv", "residual"])
+def test_kernel_derivatives_match_the_plain_versions(cuda, mode, m, dtype):
+    """``torch.func.jvp`` and reverse mode of the CUDA op (its rules launch
+    the kernel: on the tangent's coefficients, on dx, on the transposed
+    operator) against torch's derivatives of the plain version on the CPU,
+    to 1e-12 (float64) or 1e-5 (float32) of the largest entry."""
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    res = []
+    for dev in (cuda, "cpu"):
+        offs, t = _stencil_operands(dev, dtype, mode, m)
+        names = ["coef", "diag", "x"] + (["b"] if mode == "residual" else [])
+
+        def f(*args):
+            kw = dict(zip(names, args))
+            return dk.dia_stencil(offs, mode, kw["coef"], kw["diag"],
+                                  kw["x"], b=kw.get("b"))
+
+        dk.reset_launches()
+        _, jv = torch.func.jvp(f, tuple(t[k] for k in names),
+                               tuple(t["d" + k] for k in names))
+        leaves = [t[k].clone().requires_grad_(True) for k in names]
+        grads = torch.autograd.grad(f(*leaves), leaves, t["gy"])
+        if dev is cuda:
+            # the jvp's primal, dA x and A dx; the reverse pass's forward
+            # and A^T y-bar
+            assert dk.dia_stencil.launches["mv"] + dk.dia_stencil.launches[
+                "residual"] == 5
+        res.append([jv] + list(grads))
+    for got, want in zip(*res):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol * scale
+
+
+def test_kernel_derivative_raises_instead_of_falling_back(cuda):
+    """On a CUDA tensor the derivative launches the kernel or raises: the
+    Jacobi mode has no derivative, and the kernel's rules refuse a CPU
+    tensor (they never run the plain version)."""
+    offs, t = _stencil_operands(cuda, "float64", "residual", 1)
+    x = t["x"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="jacobi"):
+        dk.dia_stencil(offs, "jacobi", t["coef"], t["diag"], x, b=t["b"],
+                       omega=0.7)
+    offs, c = _stencil_operands("cpu", "float64", "mv", 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dk.DiaStencil.apply(c["coef"], c["diag"], c["x"], None, offs, "mv")
+
+
+def _random_thermal_matrix(device):
+    from fvm_tpu_torch.cases import two_material_plate
+    t, _ = two_material_plate(device=device, nx=32, ny=16)
+    A, _ = t._linearize(t.mesh, t.params, t.state, t._resolve_bcvals())
+    rng = np.random.default_rng(8)
+    off = torch.as_tensor(rng.standard_normal(A.off.shape)).to(device)
+    diag = torch.as_tensor(4.0 + rng.random(A.n)).to(device)
+    return A.replace(off=torch.where(A.mask, off, 0.0), diag=diag)
+
+
+def test_transposed_operator_launches_the_kernel(cuda):
+    """The materialized A^T of a DIA matrix with fallback entries (the
+    plate's interface and periodic rows) on the card: mv, residual and
+    Jacobi through ``dia_stencil`` at the negated offsets, equal to the
+    plain version on the CPU (max abs err 0 in the stencil; the fallback
+    adds with atomics, so 1e-14 of the largest entry)."""
+    from fvm_tpu_torch.linear.base import TransposedOperator
+    outs = []
+    for dev in (cuda, "cpu"):
+        A = _random_thermal_matrix(dev)
+        rng = np.random.default_rng(3)
+        x = torch.as_tensor(rng.standard_normal(A.n)).to(dev)
+        b = torch.as_tensor(rng.standard_normal(A.n)).to(dev)
+        op = TransposedOperator(A)
+        dk.reset_launches()
+        outs.append([op.mv(x), op.residual(x, b), op.jacobi_step(x, b, 0.7)])
+        if dev is cuda:
+            offs = tuple(sorted(-d for d in A.dia.offsets))
+            assert op._At.offsets == offs
+            assert dk.dia_stencil.launches == {"mv": 1, "residual": 1,
+                                               "jacobi": 1}
+    for got, want in zip(*outs):
+        assert float((got.cpu() - want).abs().max()) <= 1e-14 * float(
+            want.abs().max())
+
+
+def test_thermal_sensitivities_cuda_match_cpu(cuda):
+    """``cases.sensitivity_slab`` at 32 x 16: the tangent and the adjoint on
+    the card equal the CPU's to 1e-10; the tangent launches the kernel on
+    its coefficients (mv) and the adjoint's transposed solve launches it on
+    A^T (residual, in its Jacobi preconditioner)."""
+    from fvm_tpu_torch.cases import sensitivity_slab
+    res = []
+    for dev in (cuda, "cpu"):
+        t = sensitivity_slab(32, device=dev, ny=16)
+        t.advance(10)
+        n = t.mesh.n_interior_cells
+        direction = np.random.default_rng(5).standard_normal(n)
+        dk.reset_launches()
+        dT = t.solve_tangent({"k_cell": direction})
+        tangent_mv = dk.dia_stencil.launches["mv"]
+        dk.reset_launches()
+        g = t.solve_adjoint(lambda T: T.mean(), ["k_cell"])["k_cell"]
+        if dev is cuda:
+            assert tangent_mv > 0
+            assert any(k[2] == "residual" and k[3] == t.mesh.n_cells
+                       for k in dk.dia_stencil.shapes)
+            assert bool(t.options["linearSolver"].transpose_stats.converged)
+        res.append((dT, g))
+    for got, want in zip(*res):
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def test_flow_sensitivities_cuda_match_cpu(cuda):
+    """bench's cavity at 16^2 float64 with tightened inner solves
+    (``cases.tighten_cavity``), 40 outers: ``cases.cavity_sensitivities``
+    on the card equals the CPU's to 1e-9 and holds the truncated
+    duality."""
+    from fvm_tpu_torch.cases import (cavity_sensitivities, coupled_cavity,
+                                     tighten_cavity)
+    res = []
+    for dev in (cuda, "cpu"):
+        flow, _ = coupled_cavity(16, device=dev, dtype="float64")
+        tighten_cavity(flow)
+        flow.advance(40)
+        out = cavity_sensitivities(flow, niter=3)
+        assert out["gap"] < 1e-9
+        res.append(out)
+    a, b = res
+    np.testing.assert_allclose(a["tangent"], b["tangent"], rtol=1e-9)
+    for k in b["adjoint"]:
+        assert np.abs(a["adjoint"][k] - b["adjoint"][k]).max() <= 1e-9 * \
+            np.abs(b["adjoint"][k]).max()
