@@ -78,7 +78,8 @@ script exits non-zero before the last line):
                 beside the float32 call at the same shape);
  13. newton   - the Newton endgame (``advanceNewton(4)``) from the 32^2
                 float64 bench cavity after 60 SIMPLE outers, cuda against
-                cpu: one program, chunked (25), chunked with the float32
+                cpu (the CPU side in two child processes beside the card's
+                runs): one program, chunked (25), chunked with the float32
                 inner solve, chunked GMRES(30); entry residuals to 1e-8 in
                 the float64 modes, the same fixed point in the mixed one;
                 the chunk's graph replays bit for bit against the eager
@@ -130,7 +131,7 @@ script exits non-zero before the last line):
                 ``torch.addmv``; one outer as a graph replay (bit for bit
                 against the eager outer); cuda against cpu at 64^2
                 float64 over 10 outers with tight inner solves (the CPU
-                run in a child process beside the card's);
+                runs in child processes beside the card's);
  19. plate    - the two-material plate (``cases.two_material_plate``: a
                 contact-resistance interface and periodic walls) cuda
                 against cpu at 64 x 16, the closure inside ``outerChunk``
@@ -164,13 +165,40 @@ script exits non-zero before the last line):
                 per iteration by shape and scope, the transposed solves'
                 iterations, the kernel ops outside the solves, peak memory
                 and the (ungated) duality gap;
+ 23. mems     - the structures family's small cases cuda against cpu (the
+                CPU side in two child processes; held at 1e-8): the MEMS switch
+                at nx 24, ny_gap 12 (lumped stiffness, w at 0.3 and 0.6
+                V_PI, 1.4 V_PI pulls in), the cantilever at 40 x 6 with
+                inner solves at 1e-12 (deformation, tangent and adjoint in
+                E and their duality, Monte Carlo, three creep steps and the
+                von Mises stress), the FSI beam at n 24 and the small
+                models; then the switch at nx 192, ny_gap 64: the lumped
+                stiffness, main()'s bias sweep and the 1.1 V_PI snap-down
+                within time budgets (cut there), s per coupling iteration,
+                ms per electric solve, plate JFNK outer and squeeze-film
+                solve, dia_stencil launches by model and level, the idle
+                share of a coupling iteration with capped plate solves, the
+                pull-in bracket against the parallel-plate V_PI, and the
+                gap's fine-level kernel rows;
+ 24. struct   - the cantilever UQ at 160 x 24 (converge, tangent, adjoint,
+                Monte Carlo, seconds each), then the capped card-size run
+                (quad_2d(2048, 308), 2 JFNK outers of 12 Krylov trips):
+                ms per outer and per trip, each Jacobian-product mode's ms,
+                the AD products' and block-ELL products' share of a trip,
+                the residual reached, peak memory, a profiled outer;
+ 25. motion   - ``MovingMeshModel`` on quad_2d(1024, 1024) (50 sweeps on
+                the card, the rebuild, volChange and the GCL), the fracture
+                source-steady case and the squeeze-film strip at
+                quad_2d(1024, 1024) float64 against their exact fields,
+                with their fine levels' kernel rows;
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
 ``(converge)`` rows and the suite's in the ``(suite)`` rows, timed at the
 channel's and the card-size prisms' fine levels; the ILU sweep and the
 plate's fine level in their own rows; the sensitivities' in the
-``(sensitivity, f64)`` and ``(cavity sensitivities)`` rows) and, last, the
-device JSON line.
+``(sensitivity, f64)`` and ``(cavity sensitivities)`` rows; the
+structures family's in the ``(mems gap, f64)``, ``(fracture, f64)`` and
+``(squeeze film, f64)`` rows) and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -183,6 +211,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -1123,12 +1152,87 @@ def close(a, b, rtol, atol):
         for ra, rb in zip(a, b) for x, y in zip(ra, rb))
 
 
+def coupled_runs():
+    """Phase 13's advanceCoupled and Anderson runs: (label, configure the
+    flow, run it)."""
+    def anderson(f):
+        f.options["acceleration"] = "anderson"
+
+    return ((f"advanceCoupled({COUPLED_STEPS})", lambda f: None,
+             lambda f: f.advanceCoupled(COUPLED_STEPS)),
+            (f"Anderson-accelerated SIMPLE, {ANDERSON_STEPS} outers",
+             anderson, lambda f: f.advance(ANDERSON_STEPS)))
+
+
+def coupled_run_history(configure, run, device):
+    """One of ``coupled_runs`` on ``device``: the residual history."""
+    from fvm_tpu_torch.cases import coupled_cavity
+
+    flow, _ = coupled_cavity(NEWTON_N, device=device, dtype="float64")
+    configure(flow)
+    return [[float(v) for v in h[1:]] for h in run(flow)]
+
+
+# phase 13's CPU side in two children: (Newton modes, with the coupled
+# runs?) per child
+NEWTON_CPU_PARTS = (((0, 1), True), ((2, 3), False))
+
+
+def newton_cpu_side(part: int):
+    """Part ``part`` of phase 13's CPU side (``NEWTON_CPU_PARTS``), for a
+    child process: per Newton mode of the part its index, the entry
+    history, the residual after one SIMPLE step (relative to the first)
+    and the velocity; then, in the part that has them, the
+    ``coupled_runs`` histories."""
+    indices, with_coupled = NEWTON_CPU_PARTS[part]
+    snap, n0 = newton_entry()
+    modes = []
+    for i in indices:
+        opts = dict(NEWTON_MODES[i][1])
+        steps = opts.pop("steps", NEWTON_STEPS)
+        h, f = newton_run(snap, "cpu", steps=steps, **opts)
+        modes.append({"i": i, "h": h,
+                      "after": float(f.advance(1)[0][1]) / n0,
+                      "V": f.getVelocity().tolist()})
+        del f
+    return {"modes": modes, "coupled": [
+        coupled_run_history(configure, run, "cpu")
+        for _, configure, run in coupled_runs()] if with_coupled else []}
+
+
 def newton_phase(device):
     """advanceNewton(NEWTON_STEPS) in each mode on the card and on the CPU
-    from one entry state; the chunk's graph replay against the eager
-    chunk; advanceCoupled and Anderson-accelerated SIMPLE."""
+    from one entry state (the CPU side in two child processes beside the
+    card's runs); the chunk's graph replay against the eager chunk;
+    advanceCoupled and Anderson-accelerated SIMPLE."""
+    t_phase = time.time()
+    children = [spawn_cpu(f"newton_cpu_side({part})", 3)
+                for part in range(len(NEWTON_CPU_PARTS))]
+    try:
+        _newton_checks(device, children)
+    finally:
+        for child in children:
+            child.kill()
+            child.wait()
+    log("newton", f"phase 13 in {time.time() - t_phase:.1f} s")
+
+
+def _cpu_side(children):
+    """The children's results merged: the modes in ``NEWTON_MODES`` order
+    and the coupled runs."""
+    modes, coupled = {}, []
+    for child in children:
+        out = child_result(child, "newton")
+        modes.update({m["i"]: m for m in out["modes"]})
+        coupled += out["coupled"]
+    return {"modes": [modes[i] for i in range(len(NEWTON_MODES))],
+            "coupled": coupled}
+
+
+def _newton_checks(device, children):
+    """Phase 13's card runs, then its checks against the children's CPU
+    side (waited for only once the card's runs are done)."""
     import torch
-    from fvm_tpu_torch.cases import coupled_cavity
     from fvm_tpu_torch.ops import dia_kernel as dk
 
     t0 = time.time()
@@ -1136,6 +1240,7 @@ def newton_phase(device):
     log("newton", f"entry: the {NEWTON_N}^2 float64 bench cavity after "
         f"{NEWTON_SIMPLE} SIMPLE outers on the cpu (first residual "
         f"{n0:.6e}) in {time.time() - t0:.1f} s")
+    card = []
     for label, opts in NEWTON_MODES:
         t0 = time.time()
         opts = dict(opts)
@@ -1145,32 +1250,15 @@ def newton_phase(device):
         t_gpu = time.time() - t0
         launches = dk.type_launches(torch.float32 if opts.get(
             "newtonInnerPrecision") else torch.float64)
-        h_cpu, f_cpu = newton_run(snap, "cpu", steps=steps, **opts)
         trace = [(t["inner_its"], f"{t['inner_rel']:.2e}")
                  for t in getattr(f_gpu, "_newton_trace", [])]
-        after = [float(f.advance(1)[0][1]) / n0 for f in (f_gpu, f_cpu)]
-        V = [f.getVelocity() for f in (f_gpu, f_cpu)]
-        dv = float(abs(V[0] - V[1]).max() / abs(V[1]).max())
-        mixed = bool(opts.get("newtonInnerPrecision"))
-        log("newton", f"{label}: entry residuals cuda "
-            + ", ".join(f"{h[0]:.6e}" for h in h_gpu) + " / cpu "
-            + ", ".join(f"{h[0]:.6e}" for h in h_cpu)
-            + f" (advanceNewton({steps})); card inner its/rel {trace}; one "
-            f"SIMPLE step after: "
-            f"{after[0]:.3e} / {after[1]:.3e} of the first residual; "
-            f"velocities {dv:.3e} apart; card dia_stencil launches "
-            + ", ".join(f"{m} {v}" for m, v in launches.items())
-            + f"; card {t_gpu:.1f} s, {time.time() - t0:.1f} s in all")
-        if mixed:
-            ok = max(after) < 1e-8 and dv < 1e-9
-        else:
-            ok = close(h_gpu, h_cpu, NEWTON_RTOL, NEWTON_ATOL)
-        if not ok:
-            raise AssertionError(f"newton: {label}: cuda and cpu disagree")
+        card.append((label, opts, steps, h_gpu, launches, trace, t_gpu,
+                     float(f_gpu.advance(1)[0][1]) / n0,
+                     f_gpu.getVelocity()))
         if device.type == "cuda" and not sum(launches.values()):
             raise AssertionError(f"newton: {label}: dia_stencil never "
                                  f"launched on the card")
-        del f_gpu, f_cpu
+        del f_gpu
         gc.collect()
 
     # a chunk's graph replay against the same chunks run eagerly
@@ -1192,25 +1280,44 @@ def newton_phase(device):
                              "eager chunk")
     del runs, f_g, f_e, inner
     gc.collect()
-
-    # advanceCoupled and Anderson-accelerated SIMPLE
-    for label, run in (
-            (f"advanceCoupled({COUPLED_STEPS})",
-             lambda f: f.advanceCoupled(COUPLED_STEPS)),
-            (f"Anderson-accelerated SIMPLE, {ANDERSON_STEPS} outers",
-             lambda f: f.advance(ANDERSON_STEPS))):
+    coupled = []
+    for label, configure, run in coupled_runs():
         t0 = time.time()
-        hs = []
-        for dev in (device, "cpu"):
-            flow, _ = coupled_cavity(NEWTON_N, device=dev, dtype="float64")
-            if "Anderson" in label:
-                flow.options["acceleration"] = "anderson"
-            hs.append([[float(v) for v in h[1:]] for h in run(flow)])
-        worst = max_rel(*hs)
-        log("newton", f"{label} at {NEWTON_N}^2 float64: cuda {hs[0][-1]} vs "
-            f"cpu {hs[1][-1]}; max rel diff {worst:.3e} (tol {SLICE_RTOL:g})"
-            f" in {time.time() - t0:.1f} s")
-        if len(hs[0]) != len(hs[1]) or not worst <= SLICE_RTOL:
+        coupled.append((label, coupled_run_history(configure, run, device),
+                        time.time() - t0))
+
+    # the checks against the CPU side
+    t0 = time.time()
+    cpu_side = _cpu_side(children)
+    log("newton", f"waited {time.time() - t0:.1f} s for the CPU side")
+    for (label, opts, steps, h_gpu, launches, trace, t_gpu, after_gpu,
+         V_gpu), cpu in zip(card, cpu_side["modes"]):
+        h_cpu = cpu["h"]
+        after = [after_gpu, cpu["after"]]
+        V_cpu = np.asarray(cpu["V"])
+        dv = float(abs(V_gpu - V_cpu).max() / abs(V_cpu).max())
+        mixed = bool(opts.get("newtonInnerPrecision"))
+        log("newton", f"{label}: entry residuals cuda "
+            + ", ".join(f"{h[0]:.6e}" for h in h_gpu) + " / cpu "
+            + ", ".join(f"{h[0]:.6e}" for h in h_cpu)
+            + f" (advanceNewton({steps})); card inner its/rel {trace}; one "
+            f"SIMPLE step after: "
+            f"{after[0]:.3e} / {after[1]:.3e} of the first residual; "
+            f"velocities {dv:.3e} apart; card dia_stencil launches "
+            + ", ".join(f"{m} {v}" for m, v in launches.items())
+            + f"; card {t_gpu:.1f} s")
+        if mixed:
+            ok = max(after) < 1e-8 and dv < 1e-9
+        else:
+            ok = close(h_gpu, h_cpu, NEWTON_RTOL, NEWTON_ATOL)
+        if not ok:
+            raise AssertionError(f"newton: {label}: cuda and cpu disagree")
+    for (label, h_gpu, secs), h_cpu in zip(coupled, cpu_side["coupled"]):
+        worst = max_rel(h_gpu, h_cpu)
+        log("newton", f"{label} at {NEWTON_N}^2 float64: cuda {h_gpu[-1]} vs "
+            f"cpu {h_cpu[-1]}; max rel diff {worst:.3e} (tol {SLICE_RTOL:g})"
+            f"; card {secs:.1f} s")
+        if len(h_gpu) != len(h_cpu) or not worst <= SLICE_RTOL:
             raise AssertionError(f"newton: {label}: cuda and cpu disagree")
 
 
@@ -1752,14 +1859,14 @@ def count_applies(solver, label, counts):
     pre.precond_setup = precond_setup
 
 
-def family_histories(device):
+def family_histories(device, families=("ILU0", "SPIKE")):
     """Per family, the residual histories of 10 coupled outers of the 64^2
     float64 family cavity with tight inner solves on ``device``."""
     from fvm_tpu_torch.cases import (cavity_family, coupled_step,
                                      tighten_family)
 
     out = {}
-    for family in ("ILU0", "SPIKE"):
+    for family in families:
         flow, thermal = cavity_family(FAMILY_SLICE_N, family, device=device,
                                       dtype="float64")
         tighten_family(flow, thermal)
@@ -1770,28 +1877,22 @@ def family_histories(device):
 
 def family_slices(device):
     """cuda against cpu at 64^2 float64, held at FAMILY_TIGHT_RTOL: the
-    CPU runs in a child process on one thread while the card's run here
-    launches its kernels (both are host-bound)."""
-    import os
-    from pathlib import Path
+    CPU runs in child processes on one thread each, one per family, while
+    the card's run here launches its kernels (both are host-bound)."""
     from fvm_tpu_torch.cases import FAMILY_TIGHT_RTOL
 
     t0 = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
-         "chip_smoke.family_histories('cpu')))"],
-        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-        text=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    children = [spawn_cpu(f"family_histories('cpu', ({f!r},))")
+                for f in ("ILU0", "SPIKE")]
     try:
         cuda = family_histories(device)
-        out, _ = child.communicate(timeout=900)
+        cpu = {}
+        for child in children:
+            cpu.update(child_result(child, "family"))
     finally:
-        child.kill()
-        child.wait()
-    if child.returncode != 0:
-        raise AssertionError(f"family: the CPU run exited "
-                             f"{child.returncode}")
-    cpu = json.loads(out.strip().splitlines()[-1])
+        for child in children:
+            child.kill()
+            child.wait()
     for family, hist in cuda.items():
         worst = max_rel(hist, cpu[family])
         log("family", f"{family} {FAMILY_SLICE_N}^2 float64, "
@@ -2602,6 +2703,659 @@ def cavity_sensitivity_phase(device, state, smi):
                           MAIN_DTYPE, device)
 
 
+# ---- phases 23-25: the structures and MEMS family ------------------------
+# cuda-against-cpu gates (the CPU side in a child process, one thread,
+# beside the card's work), then the card-size runs
+MEMS_GATE = (24, 12)  # tests/test_mems.py's switch
+MEMS_CARD = (192, 64)  # the largest plate fvm_tpu converges (scripts/
+# structures_scale.py), at the demo's gap-cell aspect ratio of ~33
+MEMS_SWEEP = tuple(float(f) for f in np.linspace(0.2, 1.6, 8))  # main()
+MEMS_SNAP_V = 1.1  # x V_PI, the demo's transient snap-down
+MEMS_SNAP_STEPS = 160
+MEMS_SWEEP_BUDGET = 4.0  # s of the card-size sweep (cut there)
+MEMS_SNAP_BUDGET = 2.0  # s of the card-size snap-down (cut there)
+MEMS_PROFILE_TRIPS = 8  # the plate's Krylov trips in the profiled iteration
+CANT_GATE = (40, 6)
+CANT_GATE_SAMPLES = 1
+CANT_CREEP = {"creep": True, "creepConstant": 1e-4, "creepExponent": 1.0,
+              "yieldStress": 1e6}
+CANT_CREEP_STEPS = 3
+CANT_UQ = (160, 24)  # the largest cantilever fvm_tpu converges
+CANT_UQ_SAMPLES = 1
+CANT_CAP = (2048, 308)  # 630,784 cells, capped
+CANT_CAP_OUTERS = 2
+CANT_CAP_TRIPS = 12
+FSI_GATE_N = 24
+MOTION_N = 1024
+MOTION_SWEEPS = 50
+GATE_RTOL = 1e-8
+GATE_PARTS = ("mems", "rest")  # one CPU child each
+_cpu_gates = {}
+
+
+class BudgetSpent(Exception):
+    """A card-size loop of phase 23 reached its time budget."""
+
+
+def small_models_run(device):
+    """The small models' outputs on ``device`` (phase 25's gate)."""
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models import (FractureModel, IdealGasDensityModel,
+                                      OneDConduction, RosselandModel,
+                                      ShockTube, SqueezeFilmModel,
+                                      ThermalModel)
+
+    out = {}
+    st = ShockTube(nx=200, device=device).run(0.2)
+    out["sod_rho"] = st.primitives()[0].tolist()
+    od = OneDConduction(nx=40, kConst=2.0, device=device)
+    od.setBoundaryTemperatures(400.0, 300.0)
+    out["oned"] = od.solve().cpu().tolist()
+    ks = np.exp(np.random.default_rng(0).normal(0, 0.3, size=(16, 40)))
+    out["oned_mc"] = od.solve_mc(ks).cpu().tolist()
+    dm = build_device_mesh(quad_2d(8, 8), dtype="float64", device=device)
+    fr = FractureModel(dm)
+    fr.options["verbose"] = False
+    fr.options["transient"] = False
+    fr.vc["fractureSource"] = 1.0
+    fr.vc["fractureSourceCoef"] = 4.0
+    for g in ("left", "right", "bottom", "top"):
+        fr.bc[g].bc_type = "Symmetry"
+    fr.init()
+    fr.advance(10)
+    out["fracture"] = fr.getPhaseFieldValue().tolist()
+    sq = squeeze_strip(24, 3, device)
+    out["film"] = sq.getPressure().tolist()
+    dm4 = build_device_mesh(quad_2d(4, 4), dtype="float64", device=device)
+    gas = IdealGasDensityModel(dm4)
+    gas.vc["temperature"] = np.linspace(280.0, 320.0, dm4.n_cells)
+    gas.init()
+    gas.advance(1)
+    out["gas"] = gas.getDensity().tolist()
+    t = ThermalModel(dm4)
+    t.options["verbose"] = False
+    for g in ("left", "right", "bottom", "top"):
+        t.bc[g].bc_type = "Symmetry"
+    t.vc["initialTemperature"] = 500.0
+    t.init()
+    ross = RosselandModel(dm4, t)
+    ross.init()
+    ross.advance(1)
+    out["rosseland"] = ross.getConductivity().tolist()
+    return out
+
+
+def squeeze_strip(nx, ny, device, L=2.0, h0=0.05, mu=0.3, V0=1.0):
+    """The squeeze-film strip of ``tests/test_small_models.py:151``,
+    closing at V0, advanced 3 outers."""
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models import SqueezeFilmModel
+
+    m = SqueezeFilmModel(build_device_mesh(quad_2d(nx, ny, lx=L, ly=1.0),
+                                           dtype="float64", device=device))
+    m.options["verbose"] = False
+    m.vc["viscosity"] = mu
+    m.vc["initialGap"] = h0
+    m.bc["left"].bc_type = "Dirichlet"
+    m.bc["right"].bc_type = "Dirichlet"
+    m.bc["bottom"].bc_type = "Symmetry"
+    m.bc["top"].bc_type = "Symmetry"
+    m.init()
+    m.options["linearSolver"].exit_every = 10
+    m.set_gap(h0, -V0)
+    m.advance(3)
+    return m
+
+
+def structures_gates(device, parts=GATE_PARTS):
+    """Phases 23-25's small cases on ``device``, as plain numbers; "mems":
+    the switch at MEMS_GATE (k, w at 0.3 and 0.6 V_PI, whether 1.4 V_PI
+    pulls in); "rest": the cantilever at CANT_GATE (deformation, tangent
+    and adjoint in E, Monte Carlo, creep steps and von Mises stress), the
+    FSI beam and the small models."""
+    from fvm_tpu_torch import cases
+
+    out = {}
+    if "mems" in parts:
+        sw = cases.mems_switch(*MEMS_GATE, device=device)
+        k = sw.lumped_stiffness()
+        V = sw.pullin_formula(k)
+        w6 = sw.static_deflection(0.6 * V)
+        w3 = sw.static_deflection(0.3 * V)
+        out["mems"] = {"k": k, "w3": w3.tolist(), "w6": w6.tolist(),
+                       "pulled": sw.static_deflection(1.4 * V, w0=w6)
+                       is None}
+    if "rest" not in parts:
+        return out
+    m = cases.cantilever(*CANT_GATE, device=device)
+    tight_jfnk(m)
+    uq = cases.cantilever_uq(m, samples=CANT_GATE_SAMPLES)
+    out["cant"] = {k: v for k, v in uq.items() if not k.startswith("s_")}
+    out["cant"]["w"] = m.getDeformation().tolist()
+    mc = cases.cantilever(*CANT_GATE, device=device, options=CANT_CREEP)
+    mc.advance(15)
+    for _ in range(CANT_CREEP_STEPS):
+        mc.advanceCreep(1.0)
+        mc.advance(15)
+    out["creep"] = {"ep": mc.getPlasticStrain().tolist(),
+                    "vm": mc.getVMStress().tolist(),
+                    "w": mc.getDeformation().tolist()}
+    out["fsi"] = cases.fsi_beam(FSI_GATE_N, device=device)
+    out["small"] = small_models_run(device)
+    return out
+
+
+def tight_jfnk(m):
+    """The model's JFNK inner solve at 1e-12 (early exit every 10 trips):
+    the tangent and the adjoint then agree to round-off (at the default
+    1e-6 they differ by ~1e-6, the solves' own tolerance)."""
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+
+    solver = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                      relative_tolerance=1e-12, max_iterations=1000)
+    solver.exit_every = 10
+    m.options["linearSolver"] = solver
+    m._drop_compiled()
+
+
+def spawn_cpu(call: str, threads: int = 1):
+    """``chip_smoke.<call>`` in a child process, its result printed as JSON
+    (the CPU side of a cuda-against-cpu gate, run beside the card's)."""
+    import os
+    from pathlib import Path
+
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         f"chip_smoke.{call}))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
+
+
+def child_result(child, what: str):
+    """A ``spawn_cpu`` child's result (waits for it; kills it on
+    failure)."""
+    try:
+        out, _ = child.communicate(timeout=1200)
+    finally:
+        child.kill()
+        child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"{what}: the CPU side exited "
+                             f"{child.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def start_cpu_gates():
+    """Start ``structures_gates('cpu')`` in child processes, one per part
+    (once)."""
+    if "children" not in _cpu_gates:
+        _cpu_gates["children"] = [
+            spawn_cpu(f"structures_gates('cpu', ({part!r},))")
+            for part in GATE_PARTS]
+
+
+def cpu_gates():
+    """The children's results, merged (waits for them)."""
+    if "result" not in _cpu_gates:
+        out = {}
+        for child in _cpu_gates.pop("children"):
+            out.update(child_result(child, "the structures gates"))
+        _cpu_gates["result"] = out
+    return _cpu_gates["result"]
+
+
+def gate_diff(a, b):
+    """max |a - b| / max |b| over nested lists or numbers."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def check_gates(phase, cuda, cpu, keys, rtol=GATE_RTOL):
+    """Log and hold each ``keys`` entry of the two gate dicts."""
+    for k in keys:
+        d = gate_diff(cuda[k], cpu[k])
+        log(phase, f"cuda vs cpu {k}: max rel diff {d:.3e} (tol {rtol:g})")
+        if not d <= rtol:
+            raise AssertionError(f"{phase}: {k} differs: {d:.3e}")
+
+
+class SolveClock:
+    """Host seconds (synchronized) and counts of the solves a model runs:
+    each ``name``'s calls of ``fn`` timed, launches counted in its
+    ``dia_stencil`` launch scope."""
+
+    def __init__(self):
+        self.secs, self.calls = {}, {}
+
+    def wrap(self, obj, attr, name):
+        import torch
+        from fvm_tpu_torch.ops import dia_kernel as dk
+
+        inner = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with dk.launch_scope(name):
+                out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            self.secs[name] = self.secs.get(name, 0.0) + (
+                time.perf_counter() - t0)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return out
+
+        setattr(obj, attr, timed)
+
+    def line(self):
+        return ", ".join(
+            f"{k} {1e3 * v / max(self.calls[k], 1):.2f} ms x "
+            f"{self.calls[k]}" for k, v in self.secs.items())
+
+
+def scoped_launches():
+    """dia_stencil launches since the last reset, by scope and mode."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    return ", ".join(f"{sc}/{m} {v}" for (sc, m), v in
+                     sorted(dk.dia_stencil.scoped.items()))
+
+
+def level_launches(shapes):
+    """dia_stencil launches since the last reset by level (rows) of
+    ``shapes``, and by mode."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    parts = []
+    for i, s in enumerate(shapes):
+        got = {k[2]: v for k, v in dk.dia_stencil.shapes.items()
+               if k[3] == s.rows}
+        if got:
+            parts.append(f"L{i} ({s.rows} rows): " + ", ".join(
+                f"{m} {v}" for m, v in sorted(got.items())))
+    return "; ".join(parts)
+
+
+def fine_rows(tag, label, model, solver_key, launches, device):
+    """The kernel against its plain version at the fine level of
+    ``model``'s AMG hierarchy (bit for bit), then the ``kernels`` rows of
+    that shape with ``launches`` (float64, (n,))."""
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    amg = model.options[solver_key].preconditioner
+    fine = kb.level_shapes(amg, model.mesh)[0]
+    errors = {}
+    kernel_vs_plain(label, fine.rows, fine.offsets, device, errors,
+                    nrhs=(1,), dia=fine.dia, dtypes=("float64",))
+    return time_modes(tag, fine.rows, fine.offsets,
+                      (("mv", 1), ("residual", 1), ("jacobi", 1)), launches,
+                      errors, "float64")
+
+
+def mems_phase(device, smi):
+    """23 (module docstring); returns the gap fine level's kernel rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    start_cpu_gates()
+    t0 = time.perf_counter()
+    gpu = _cpu_gates["gpu"] = structures_gates(device)
+    log("mems", f"the gates (phases 23-25's small cases) on the card in "
+        f"{time.perf_counter() - t0:.1f} s (their CPU side runs in child "
+        f"processes meanwhile)")
+
+    # ---- the published geometry at MEMS_CARD
+    nx, ny = MEMS_CARD
+    t0 = time.perf_counter()
+    sw = cases.mems_switch(nx, ny, device=device)
+    torch.cuda.synchronize()
+    log("mems", f"switch nx {nx}, ny_gap {ny} float64: plate "
+        f"{sw.plate.mesh.n_interior_cells} cells, gap "
+        f"{sw.elec.mesh.n_interior_cells} cells, set up in "
+        f"{time.perf_counter() - t0:.2f} s; gap hierarchy "
+        + describe(kb.level_shapes(
+            sw.elec.options["electrostaticsLinearSolver"].preconditioner,
+            sw.elec.mesh)))
+    clock = SolveClock()
+    clock.wrap(sw.elec, "advance", "electric")
+    clock.wrap(sw.film, "advance", "film")
+    build = sw.plate._build_step
+
+    def timed_build():
+        # every step the plate builds (init rebuilds it) timed per outer
+        holder = types.SimpleNamespace(step=build())
+        clock.wrap(holder, "step", "plate outer")
+        return holder.step
+
+    sw.plate._build_step = timed_build
+    sw.plate._step = timed_build()
+    couplings = {"n": 0, "deadline": None}
+    inner = sw.electrostatic_pressure
+
+    def counted(w, V):
+        # each coupling iteration starts here: the budget is checked
+        if couplings["deadline"] and time.perf_counter() > couplings[
+                "deadline"]:
+            raise BudgetSpent
+        couplings["n"] += 1
+        return inner(w, V)
+
+    sw.electrostatic_pressure = counted
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    k = sw.lumped_stiffness()
+    V_pi = sw.pullin_formula(k)
+    log("mems", f"lumped stiffness k = {k:.6g} MPa um in "
+        f"{time.perf_counter() - t0:.2f} s ({clock.line()}); parallel-plate "
+        f"V_PI = {V_pi:.4f} V")
+    # main()'s bias sweep, within its budget
+    t_sweep = time.perf_counter()
+    couplings["deadline"] = t_sweep + MEMS_SWEEP_BUDGET
+    seen = {"n": couplings["n"], "V_lo": 0.0}
+
+    def report(row):
+        nc = couplings["n"] - seen["n"]
+        seen["n"] = couplings["n"]
+        if row["w_max_g0"] is not None:
+            seen["V_lo"] = row["V"]
+        log("mems", f"{row['V']:8.3f} V ({row['factor']:.1f} V_PI): "
+            + ("PULL-IN" if row["w_max_g0"] is None
+               else f"w_max/g0 {row['w_max_g0']:.5f}")
+            + f" in {row['s']:.2f} s, {nc} coupling iterations "
+            f"({row['s'] / max(nc, 1):.3f} s each)")
+
+    V_hi = None
+    try:
+        _, (_, V_hi) = sw.sweep(V_pi, MEMS_SWEEP, report)
+    except BudgetSpent:
+        nc = couplings["n"] - seen["n"]
+        log("mems", f"sweep stopped after {nc} coupling iterations of its "
+            f"next bias point ({(time.perf_counter() - t_sweep) / max(nc, 1):.3f}"
+            f" s each): its budget ({MEMS_SWEEP_BUDGET:g} s) is spent")
+    couplings["deadline"] = None
+    log("mems", f"per solve: {clock.line()} [{smi}]")
+    V_lo = seen["V_lo"]
+    log("mems", "simulated pull-in bracket "
+        + (f"({V_lo:.3f}, {V_hi:.3f}] V" if V_hi else
+           f"above {V_lo:.3f} V (no pull-in within the budget)")
+        + f" against the parallel-plate V_PI {V_pi:.3f} V")
+    # the idle share from a profiled coupling iteration whose plate Krylov
+    # solves are capped (the profiler's cost grows with the kernels it
+    # records: ~2.9M in a whole iteration)
+    psolver = sw.plate.options["linearSolver"]
+    maxit = psolver.nMaxIterations
+    psolver.nMaxIterations = MEMS_PROFILE_TRIPS
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.static_deflection(0.2 * V_pi, iters=1)
+        torch.cuda.synchronize()
+        profile_run("mems", f"one coupling iteration, plate Krylov solves "
+                    f"capped at {MEMS_PROFILE_TRIPS} trips",
+                    lambda: sw.static_deflection(0.2 * V_pi, iters=1),
+                    1e3 * (time.perf_counter() - t0))
+    finally:
+        psolver.nMaxIterations = maxit
+    # the transient snap-down, within its budget
+    t0 = time.perf_counter()
+    c0 = couplings["n"]
+    couplings["deadline"] = t0 + MEMS_SNAP_BUDGET
+    try:
+        traj = sw.dynamic_pullin(MEMS_SNAP_V * V_pi, nsteps=MEMS_SNAP_STEPS)
+        note = f"{len(traj)} steps"
+    except BudgetSpent:
+        traj, note = [], (f"stopped after {couplings['n'] - c0} steps: its "
+                          f"budget ({MEMS_SNAP_BUDGET:g} s) is spent")
+    couplings["deadline"] = None
+    snap_s = time.perf_counter() - t0
+    log("mems", f"snap-down at {MEMS_SNAP_V} V_PI: {note} in {snap_s:.2f} s "
+        f"({snap_s / max(couplings['n'] - c0, 1):.3f} s per step)"
+        + ("; w_max/g0 " + " ".join(f"{x / sw.g0:.3f}" for x in
+                                    traj[::max(1, len(traj) // 10)])
+           if traj else ""))
+    launches = dk.type_launches(torch.float64)
+    log("mems", f"dia_stencil launches by model: {scoped_launches()}")
+    log("mems", "by level of the gap hierarchy: " + level_launches(
+        kb.level_shapes(
+            sw.elec.options["electrostaticsLinearSolver"].preconditioner,
+            sw.elec.mesh)))
+    log("mems", f"per solve over the phase: {clock.line()}")
+    if not launches["residual"]:
+        raise AssertionError("mems: the gap solves never launched the kernel")
+    t0 = time.perf_counter()
+    cpu = cpu_gates()
+    log("mems", f"switch nx {MEMS_GATE[0]}, ny_gap {MEMS_GATE[1]} float64: "
+        f"k cuda {gpu['mems']['k']!r} cpu {cpu['mems']['k']!r}; pull-in at "
+        f"1.4 V_PI cuda {gpu['mems']['pulled']} cpu {cpu['mems']['pulled']} "
+        f"(waited {time.perf_counter() - t0:.1f} s for the CPU side)")
+    check_gates("mems", gpu["mems"], cpu["mems"], ("k", "w3", "w6"))
+    if not (gpu["mems"]["pulled"] and cpu["mems"]["pulled"]):
+        raise AssertionError("mems: 1.4 V_PI does not pull in")
+    return fine_rows(" (mems gap, f64)", "MEMS gap fine level", sw.elec,
+                     "electrostaticsLinearSolver", launches, device)
+
+
+def struct_phase(device, smi):
+    """24 (module docstring); no kernel rows (block-ELL, no DIA)."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+    from fvm_tpu_torch.models.structure import product_mode
+
+    gpu = _cpu_gates.get("gpu")
+    if gpu is None:
+        start_cpu_gates()
+        gpu = _cpu_gates["gpu"] = structures_gates(device)
+    cpu = cpu_gates()
+    log("struct", f"cantilever {CANT_GATE[0]} x {CANT_GATE[1]} float64: tip "
+        f"cuda {gpu['cant']['tip']!r} cpu {cpu['cant']['tip']!r}; duality "
+        f"cuda {gpu['cant']['duality']:.3e} cpu {cpu['cant']['duality']:.3e}")
+    check_gates("struct", gpu["cant"], cpu["cant"],
+                ("w", "tip", "dtip_dE", "adjoint_dtip_dE", "mc_mean"))
+    check_gates("struct", gpu["creep"], cpu["creep"], ("w", "ep", "vm"))
+    if not gpu["cant"]["duality"] <= GATE_RTOL:
+        raise AssertionError("struct: the adjoint and the tangent disagree")
+
+    nx, ny = CANT_UQ
+    m = cases.cantilever(nx, ny, device=device)
+    uq = cases.cantilever_uq(m, samples=CANT_UQ_SAMPLES)
+    h = uq["history"]
+    log("struct", f"cantilever UQ {nx} x {ny} ({m.mesh.n_interior_cells} "
+        f"cells): {len(h)} outers to {h[-1] / h[0]:.3e}, tip "
+        f"{uq['tip']:.6e} in {uq['s_converge']:.2f} s; tangent "
+        f"d tip/dE {uq['dtip_dE']:.6e} in {uq['s_tangent']:.2f} s, adjoint "
+        f"{uq['adjoint_dtip_dE']:.6e} in {uq['s_adjoint']:.2f} s (duality "
+        f"{uq['duality']:.3e}); Monte Carlo {CANT_UQ_SAMPLES} samples, "
+        f"{uq['s_per_sample']:.2f} s each [{smi}]")
+    del m
+    gc.collect()
+
+    # ---- the capped card-size run
+    nx, ny = CANT_CAP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = cases.cantilever(nx, ny, device=device)
+    solver = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                      relative_tolerance=1e-6, max_iterations=CANT_CAP_TRIPS)
+    m.options["linearSolver"] = solver
+    m._drop_compiled()
+    torch.cuda.synchronize()
+    log("struct", f"capped run quad_2d({nx}, {ny}) float64: "
+        f"{m.mesh.n_interior_cells} cells, set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    hist = m.advance(CANT_CAP_OUTERS)
+    torch.cuda.synchronize()
+    outer_s = (time.perf_counter() - t0) / len(hist)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("struct", f"{len(hist)} JFNK outers of {CANT_CAP_TRIPS} Krylov "
+        f"trips: {1e3 * outer_s:.1f} ms per outer, "
+        f"{1e3 * outer_s / CANT_CAP_TRIPS:.2f} ms per trip; residual "
+        + ", ".join(f"{r[1]:.6e}" for r in hist)
+        + f" ({hist[-1][1] / hist[0][1]:.3e} of the first); peak memory "
+        f"{peak:.3f} GiB [{smi}]")
+    # the split of a trip: the AD products against the block-ELL ones
+    mesh, params, state = m.mesh, m.params, m.state
+    bc = m._resolve_bcvals()
+    w = state["deformation"]
+    A, r = m._system(mesh, params, state, bc, w)
+    v = torch.randn_like(w)
+    prod_ms = {}
+    for mode in ("graph", "reverse", "forward"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op = m._jfnk_operator(mesh, params, state, bc, w, A, mode)
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        prod_ms[mode] = time_events([lambda: op.mv(v)], 10)
+        log("struct", f"Jacobian product ({mode}): {prod_ms[mode]:.3f} ms "
+            f"each (its graph built in {build_ms:.1f} ms)")
+    bell_ms = time_events([lambda: A.diag_solve(r)], 20)
+    mv_ms = time_events([lambda: A.mv(r)], 20)
+    trip_ms = 1e3 * outer_s / CANT_CAP_TRIPS
+    log("struct", f"block-ELL: diag_solve {bell_ms:.3f} ms, surrogate mv "
+        f"{mv_ms:.3f} ms.  A trip makes 6 exact products (2 of the "
+        f"operator, 4 in the two Jacobi(3) applications) and 6 "
+        f"diag_solves: {6 * prod_ms[product_mode(w)]:.2f} ms of AD "
+        f"products ({product_mode(w)}, the mode of this size) and "
+        f"{6 * bell_ms:.2f} ms of block-ELL products of the {trip_ms:.2f} "
+        f"ms trip")
+    profile_run("struct", f"one JFNK outer of the capped run "
+                f"({CANT_CAP_TRIPS} trips)", lambda: m.advance(1),
+                1e3 * outer_s, top=10)
+    del m, A, r, op
+    gc.collect()
+    torch.cuda.empty_cache()
+    return []
+
+
+def motion_phase(device, smi):
+    """25 (module docstring); returns the fracture and squeeze-film fine
+    levels' kernel rows."""
+    import torch
+    from fvm_tpu_torch.mesh import build_device_mesh, compute_geometry
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models import FractureModel, MovingMeshModel
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    gpu = _cpu_gates.get("gpu")
+    if gpu is None:
+        start_cpu_gates()
+        gpu = _cpu_gates["gpu"] = structures_gates(device)
+    cpu = cpu_gates()
+    for i, (a, b) in enumerate(zip(gpu["fsi"], cpu["fsi"])):
+        check_gates("motion", a, b, ("p_mean", "w_mean", "vol_change"))
+    log("motion", f"FSI beam n {FSI_GATE_N}: " + "; ".join(
+        f"iter {i}: p {r['p_mean']:+.5f}, w {r['w_mean']:+.6f}, dV "
+        f"{r['vol_change']:+.6f}" for i, r in enumerate(gpu["fsi"])))
+    check_gates("motion", gpu["small"], cpu["small"], tuple(cpu["small"]))
+
+    # ---- mesh motion at card size
+    n = MOTION_N
+    mesh = quad_2d(n, n)
+    t0 = time.perf_counter()
+    mm = MovingMeshModel(mesh, device=device)
+    setup_s = time.perf_counter() - t0
+    V0 = mm._geom0.cell_volume[: mesh.n_interior_cells]
+    mm.set_boundary_displacement("top", [0.0, 0.1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disp = mm.smooth(MOTION_SWEEPS)
+    torch.cuda.synchronize()
+    smooth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new_mesh, dm = mm.advance(MOTION_SWEEPS, dt=0.5)
+    torch.cuda.synchronize()
+    adv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    V1 = compute_geometry(new_mesh).cell_volume[: mesh.n_interior_cells]
+    fc = mesh.face_cells
+    dVdt = np.zeros(mesh.n_cells)
+    np.add.at(dVdt, fc[:, 0], mm.sweptVolDot)
+    np.add.at(dVdt, fc[:, 1], -mm.sweptVolDot)
+    gcl = float(np.abs(dVdt[: mesh.n_interior_cells] - (V1 - V0) / 0.5).max())
+    log("motion", f"MovingMeshModel quad_2d({n}, {n}) ({mesh.n_nodes} nodes,"
+        f" {len(mm.edges)} edges): set up {setup_s:.2f} s; {MOTION_SWEEPS} "
+        f"Jacobi sweeps on the card {1e3 * smooth_s:.1f} ms; advance("
+        f"{MOTION_SWEEPS}) with the new geometry and device mesh "
+        f"{adv_s:.2f} s; volChange {mm.volChange:.9f} (top wall +0.1); GCL "
+        f"max |sum sweptVolDot - dV/dt| {gcl:.3e} (check {time.perf_counter() - t0:.2f} s)")
+    if not (gcl <= 1e-9 and abs(mm.volChange - 0.1) <= 1e-9
+            and dm.n_interior_cells == n * n):
+        raise AssertionError("motion: the moved mesh breaks the GCL")
+    del mm, mesh, new_mesh, dm, disp
+    gc.collect()
+
+    rows = []
+    # ---- the fracture source-steady case at card size
+    t0 = time.perf_counter()
+    fr = FractureModel(build_device_mesh(quad_2d(n, n), dtype="float64",
+                                         device=device))
+    fr.options["verbose"] = False
+    fr.options["transient"] = False
+    fr.vc["fractureSource"] = 1.0
+    fr.vc["fractureSourceCoef"] = 4.0
+    for g in ("left", "right", "bottom", "top"):
+        fr.bc[g].bc_type = "Symmetry"
+    fr.init()
+    fr.options["linearSolver"].exit_every = 10
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    hist = fr.advance(10)
+    torch.cuda.synchronize()
+    err = float(np.abs(fr.getPhaseFieldValue() - 0.5).max())
+    launches = dk.type_launches(torch.float64)
+    log("motion", f"fracture quad_2d({n}, {n}) float64: set up {setup_s:.2f} "
+        f"s, {len(hist)} outers in {time.perf_counter() - t0:.2f} s, max "
+        f"|d - 0.5| {err:.3e}; dia_stencil launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()) + f" [{smi}]")
+    if not err <= 1e-8:
+        raise AssertionError("motion: the fracture field is off")
+    rows += fine_rows(" (fracture, f64)", "fracture fine level", fr,
+                      "linearSolver", launches, device)
+    del fr
+    gc.collect()
+
+    # ---- the squeeze-film strip at card size
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    sq = squeeze_strip(n, n, device)
+    torch.cuda.synchronize()
+    sq_s = time.perf_counter() - t0
+    L, h0, mu, V0_ = 2.0, 0.05, 0.3, 1.0
+    x = sq.mesh.cell_centroid[: sq.mesh.n_interior_cells, 0].cpu().numpy()
+    p_exact = 6.0 * mu * V0_ / h0**3 * x * (L - x)
+    perr = float(np.abs(sq.getPressure() - p_exact).max())
+    ptol = 3.0 * mu * V0_ / h0**3 * (L / n) ** 2
+    F = sq.getDampingForce()
+    F_exact = mu * V0_ * L**3 / h0**3
+    launches = dk.type_launches(torch.float64)
+    sq.set_gap(h0 / 2, -V0_)
+    sq.advance(3)
+    ratio = sq.getDampingForce() / F
+    log("motion", f"squeeze film quad_2d({n}, {n}) float64: set up and 3 "
+        f"outers {sq_s:.2f} s; max |p - p_exact| {perr:.3e} (tol "
+        f"{ptol:.3e}); force {F:.9e} against {F_exact:.9e} (rel "
+        f"{abs(F - F_exact) / F_exact:.3e}); half gap: force x {ratio:.6f}; "
+        f"dia_stencil launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()) + f" [{smi}]")
+    if not (perr <= ptol and abs(F - F_exact) <= 5e-3 * F_exact
+            and abs(ratio - 8.0) <= 8e-5):
+        raise AssertionError("motion: the squeeze film is off")
+    rows += fine_rows(" (squeeze film, f64)", "squeeze-film fine level", sq,
+                      "linearSolver", launches, device)
+    del sq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -2862,7 +3616,12 @@ def main() -> int:
     # ---- 21-22. the sensitivities ---------------------------------------
     t21 = time.time()
     kernels.extend(extras_phases(device, smi, (21, 22), cavity_state))
-    log("done", f"phases 21-22 in {time.time() - t21:.1f} s; phases 1-22 in "
+    log("done", f"phases 21-22 in {time.time() - t21:.1f} s")
+
+    # ---- 23-25. the structures and MEMS family ---------------------------
+    t23 = time.time()
+    kernels.extend(extras_phases(device, smi, (23, 24, 25)))
+    log("done", f"phases 23-25 in {time.time() - t23:.1f} s; phases 1-25 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2871,7 +3630,7 @@ def main() -> int:
 
 
 def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
-    """Phases 18-22 (those in ``phases``), each timed; returns their
+    """Phases 18-25 (those in ``phases``), each timed; returns their
     ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
@@ -2880,7 +3639,10 @@ def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
             (20, lambda: small_checks_phase(device)),
             (21, lambda: rows.extend(sensitivity_phase(device, smi))),
             (22, lambda: rows.extend(cavity_sensitivity_phase(
-                device, cavity_state, smi)))):
+                device, cavity_state, smi))),
+            (23, lambda: rows.extend(mems_phase(device, smi))),
+            (24, lambda: rows.extend(struct_phase(device, smi))),
+            (25, lambda: rows.extend(motion_phase(device, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

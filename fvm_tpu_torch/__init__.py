@@ -29,5 +29,6 @@ from . import mesh
 from . import ops
 from . import linear
 from . import models
+from . import geom
 
 __version__ = "0.1.0"

@@ -797,3 +797,394 @@ def cavity_sensitivities(flow, niter: int = 5) -> dict:
     return {"tangent": dF, "adjoint": grads, "dual": dual,
             "gap": abs(dual - float(dF[0])) / max(abs(float(dF[0])), 1e-300),
             "tangent_s": t1 - t0, "adjoint_s": t2 - t1, "niter": niter}
+
+
+# --- the structures and MEMS family -----------------------------------------
+#
+# ``MemsSwitch`` / ``mems_switch``: the MEMS electrostatic switch of
+# ``demos/simulator_mems.py:43-193`` (the reference's scripts/Simulator.py):
+# a clamped-clamped PlateModel strip loaded by the electrostatic pressure of
+# an ElectricModel on the gap cross-section (the conductor marked by the
+# mask form of the immersed boundary above the deformed beam), the
+# squeeze-film damping and the contact closure.  Units: micrometres, MPa,
+# volts (eps0 = 8.8542e-6 MPa um^2 / V^2).
+
+MEMS_EPS0 = 8.8542e-6  # MPa um^2 / V^2
+MEMS_EXIT_EVERY = 10  # the eager electric and film solves' early exit
+
+
+class MemsSwitch:
+    """The demo's ``MemsSwitch`` on the port: the same geometry, material
+    and methods (``lumped_stiffness``, ``static_deflection``,
+    ``dynamic_pullin``, ``electrostatic_pressure``), on ``device``."""
+
+    def __init__(self, g0=2.0, L=200.0, W=20.0, h=0.5, E=160e3, nx=40,
+                 ny_gap=16, device=None, dtype="float64"):
+        from .models import (ContactModel, ElectricModel, PlateModel,
+                             SqueezeFilmModel)
+
+        self.g0, self.L, self.W = g0, L, W
+        self.nx, self.ny_gap = nx, ny_gap
+
+        def strip():
+            return build_device_mesh(quad_2d(nx, 3, lx=L, ly=W), dtype=dtype,
+                                     device=device)
+
+        dm_p = strip()
+        p = PlateModel(dm_p)
+        p.options["verbose"] = False
+        p.vc["ym"] = E
+        p.vc["nu"] = 0.22
+        p.vc["thickness"] = h
+        p.vc["density"] = 2.33e-15  # kg/um^3 (silicon)
+        p.bc["left"].bc_type = "Clamped"
+        p.bc["right"].bc_type = "Clamped"
+        p.bc["bottom"].bc_type = "Symmetry"
+        p.bc["top"].bc_type = "Symmetry"
+        p.init()
+        self.plate = p
+        self.xp = dm_p.cell_centroid[: dm_p.n_interior_cells, 0].cpu().numpy()
+
+        # electrostatics on the gap cross-section [0, L] x [0, g0]
+        dm_e = build_device_mesh(quad_2d(nx, ny_gap, lx=L, ly=g0),
+                                 dtype=dtype, device=device)
+        e = ElectricModel(dm_e)
+        e.options["verbose"] = False
+        e.bc["bottom"].bc_type = "SpecifiedPotential"  # ground electrode
+        e.bc["bottom"]["specifiedPotential"] = 0.0
+        e.bc["top"].bc_type = "SpecifiedPotential"
+        e.bc["left"].bc_type = "Symmetry"
+        e.bc["right"].bc_type = "Symmetry"
+        e.init()
+        e.options["electrostaticsLinearSolver"].exit_every = MEMS_EXIT_EVERY
+        self.elec = e
+        cc = dm_e.cell_centroid[: dm_e.n_interior_cells]
+        self.xe, self.ye = (cc[:, 0].cpu().numpy(), cc[:, 1].cpu().numpy())
+        # the demo's column of each gap cell
+        span = self.xe.max() - self.xe.min()
+        self._col = torch.as_tensor(np.round(
+            (self.xe - self.xe.min()) / span * (nx - 1)).astype(np.int64),
+            device=dm_e.device)
+        self._ye_t = cc[:, 1]
+
+        # squeeze film on the plate's mesh: vented ends, sealed sides
+        sq = SqueezeFilmModel(strip())
+        sq.options["verbose"] = False
+        sq.vc["viscosity"] = 1.8e-11  # MPa s (air)
+        sq.vc["initialGap"] = g0
+        sq.bc["left"].bc_type = "Dirichlet"
+        sq.bc["right"].bc_type = "Dirichlet"
+        sq.bc["bottom"].bc_type = "Symmetry"
+        sq.bc["top"].bc_type = "Symmetry"
+        sq.init()
+        sq.options["linearSolver"].exit_every = MEMS_EXIT_EVERY
+        self.film = sq
+
+        # contact against the ground plane (the counter-surface at gap 0)
+        ct = ContactModel(dm_p, np.zeros((2, 2)))
+        ct.vc["contactStiffness"] = 2e2  # MPa at full engagement
+        ct.vc["contactGap"] = 0.1 * g0
+        ct.vc["minimumGap"] = 1e-3 * g0
+        self.contact = ct
+
+    def column_top_field(self, E, mask) -> np.ndarray:
+        """p_es per column: eps0 |E|^2 / 2 in the topmost fluid cell of
+        each column (the first such cell in cell order), 0 for a column
+        with no fluid cell: the demo's loop over columns as segment
+        reductions."""
+        ncol, dev = self.nx, E.device
+        Emag = torch.sqrt((E * E).sum(dim=1))  # np.linalg.norm's sum
+        fluid = ~torch.as_tensor(mask, device=dev)
+        ye, col = self._ye_t, self._col
+        neg = torch.full_like(ye, -float("inf"))
+        ytop = torch.full((ncol,), -float("inf"), dtype=ye.dtype,
+                          device=dev).scatter_reduce(
+            0, col, torch.where(fluid, ye, neg), "amax")
+        top = fluid & (ye == ytop.index_select(0, col))
+        n = ye.shape[0]
+        idx = torch.arange(n, device=dev)
+        first = torch.full((ncol,), n, dtype=idx.dtype, device=dev
+                           ).scatter_reduce(
+            0, col, torch.where(top, idx, torch.full_like(idx, n)), "amin")
+        have = first < n
+        Et = Emag.index_select(0, torch.clamp(first, max=n - 1))
+        p = torch.where(have, MEMS_EPS0 * Et**2 / 2.0, 0.0)
+        return p.cpu().numpy()
+
+    def electrostatic_pressure(self, w, V) -> np.ndarray:
+        """The immersed-boundary electrostatics: the cells above the
+        deformed beam face marked as conductor at V, solved; returns p_es
+        = eps0 E^2 / 2 at the surface per plate interior cell."""
+        gap_x = np.interp(self.xe, self.xp, self.g0 - w)
+        mask = self.ye > np.maximum(gap_x, 2.5 * self.g0 / self.ny_gap)
+        self.elec.bc["top"]["specifiedPotential"] = float(V)
+        self.elec.set_immersed_boundary(mask, float(V))
+        self.elec.advance(2)
+        p_es = self.column_top_field(self.elec._E[: len(mask)], mask)
+        xcol = np.linspace(self.xe.min(), self.xe.max(), self.nx)
+        return np.interp(self.xp, xcol, p_es)
+
+    def _load(self, values) -> np.ndarray:
+        p = self.plate
+        load = np.zeros(p.mesh.n_cells)
+        load[: p.mesh.n_interior_cells] = values
+        return load
+
+    def static_deflection(self, V, w0=None, iters=30):
+        """The quasi-static equilibrium at bias V (None once pulled in)."""
+        p = self.plate
+        w = np.zeros_like(self.xp) if w0 is None else w0.copy()
+        for _ in range(iters):
+            p_es = self.electrostatic_pressure(w, V)
+            p_ct = self.contact.gap_force(self.g0 - w)
+            p.set_pressure(self._load(-p_es + p_ct))
+            p.state["u"] = p.state["u"] * 0.0
+            p._initial_norm = None
+            p.advance(4)
+            w_new = -p.getDeflection()
+            if np.abs(w_new - w).max() < 1e-6 * self.g0:
+                return w_new
+            w = 0.6 * w_new + 0.4 * w
+            if w.max() > 0.95 * self.g0:
+                return None  # pulled in (the contact regime)
+        return w
+
+    def lumped_stiffness(self) -> float:
+        """k = p A / w_max from a uniform 1 kPa load (the beam's own)."""
+        p = self.plate
+        p.set_pressure(np.full(p.mesh.n_cells, -1e-3))
+        p.state["u"] = p.state["u"] * 0.0
+        p._initial_norm = None
+        p.advance(6)
+        wmax = float(np.abs(p.getDeflection()).max())
+        return 1e-3 * self.L * self.W / wmax
+
+    def pullin_formula(self, k) -> float:
+        """The parallel-plate V_PI = sqrt(8 k g0^3 / (27 eps0 A))."""
+        return float(np.sqrt(8.0 * k * self.g0**3
+                             / (27.0 * MEMS_EPS0 * self.L * self.W)))
+
+    def dynamic_pullin(self, V, dt=2e-7, nsteps=160):
+        """The transient snap-down at fixed V with squeeze damping and
+        contact; returns the w_max trajectory."""
+        p = self.plate
+        p.options["transient"] = True
+        p.options["timeStep"] = dt
+        p.init()  # rebuilt with the inertia terms
+        w_prev = np.zeros_like(self.xp)
+        traj = []
+        for _ in range(nsteps):
+            w = np.clip(-p.getDeflection(), 0.0, 0.98 * self.g0)
+            dwdt = (w - w_prev) / dt
+            self.film.set_gap(np.maximum(self.g0 - w, 1e-2 * self.g0), -dwdt)
+            self.film.advance(3)
+            p_damp = self.film.get_field()  # resists closing
+            p_es = self.electrostatic_pressure(w, V)
+            p_ct = self.contact.gap_force(self.g0 - w)
+            p.set_pressure(self._load(-p_es + p_ct + p_damp))
+            p.advance(3)
+            p.updateTime()
+            w_prev = w
+            traj.append(float(w.max()))
+            if traj[-1] > self.g0 * (1 - 0.12):
+                break
+        return traj
+
+    def sweep(self, V_pi, factors=None, report=None):
+        """``main()``'s bias sweep: static deflections at ``factors`` x
+        V_pi (default np.linspace(0.2, 1.6, 8)), each from the last one's
+        equilibrium, until pull-in.  ``report(row)`` sees each bias point
+        as it ends: {"V", "factor", "w_max_g0" (None: pulled in), "s"}.
+        Returns the rows and the bracket (V_lo, V_hi] (V_hi None without
+        pull-in)."""
+        factors = np.linspace(0.2, 1.6, 8) if factors is None else factors
+        rows, V_lo, V_hi = [], 0.0, None
+        w = np.zeros_like(self.xp)
+        for f in factors:
+            t0 = time.perf_counter()
+            res = self.static_deflection(f * V_pi, w0=w)
+            row = {"V": float(f * V_pi), "factor": float(f),
+                   "w_max_g0": (None if res is None
+                                else float(res.max() / self.g0)),
+                   "s": time.perf_counter() - t0}
+            rows.append(row)
+            if report is not None:
+                report(row)
+            if res is None:
+                V_hi = float(f * V_pi)
+                break
+            w, V_lo = res, float(f * V_pi)
+        return rows, (V_lo, V_hi)
+
+
+def mems_switch(nx: int = 40, ny_gap: int = 16, device=None,
+                dtype="float64") -> MemsSwitch:
+    """The demo's switch at the published geometry (g0 2 um, L 200, W 20,
+    h 0.5, E 160e3, nu 0.22) with ``nx`` plate columns and ``ny_gap`` gap
+    rows."""
+    return MemsSwitch(nx=nx, ny_gap=ny_gap, device=device, dtype=dtype)
+
+
+# ``cantilever`` / ``cantilever_uq``: the beam of demos/cantilever_uq.py
+# (the reference's Simulator_Cantilever_UQ.py), with square cells: a clamped-free strip under
+# an end shear traction, its tip deflection's sensitivity to Young's
+# modulus by a tangent, by Monte Carlo and by the adjoint of the tip.
+
+CANTILEVER_E = 1e9
+# lx 1, ly 0.15: square cells at 40 x 6 and at every size of the scale
+# study (scripts/structures_scale.py; the demo draws ly 0.1)
+CANTILEVER_LY = 0.15
+CANTILEVER_OUTERS = 15
+
+
+def cantilever(nx: int = 40, ny: int = 6, device=None, dtype="float64",
+               E: float = CANTILEVER_E, ly: float = CANTILEVER_LY,
+               options=None):
+    """The demo's cantilever StructureModel (nu 0, left clamped, right
+    shear traction -1e4, free top and bottom), initialised; ``options``
+    (e.g. the creep ones) are set before ``init``."""
+    from .models import StructureModel
+
+    dm = build_device_mesh(quad_2d(nx, ny, lx=1.0, ly=ly), dtype=dtype,
+                           device=device)
+    m = StructureModel(dm)
+    m.options["verbose"] = False
+    m.vc["youngsModulus"] = E
+    m.vc["poissonsRatio"] = 0.0
+    m.bc["left"].bc_type = "SpecifiedDeformation"
+    m.bc["right"].bc_type = "SpecifiedTraction"
+    m.bc["right"]["specifiedYTraction"] = -1e4  # end shear load
+    m.bc["top"].bc_type = "ZeroTraction"
+    m.bc["bottom"].bc_type = "ZeroTraction"
+    for k, v in (options or {}).items():
+        m.options[k] = v
+    m.init()
+    return m
+
+
+def tip_cells(m) -> np.ndarray:
+    """The interior cells of the last column (x within 1e-6 of the
+    largest centroid x)."""
+    dm = m.mesh
+    x = dm.cell_centroid[: dm.n_interior_cells, 0].cpu().numpy()
+    return np.nonzero(x > x.max() - 1e-6)[0]
+
+
+def tip_deflection(m) -> float:
+    return float(m.getDeformation()[tip_cells(m), 1].mean())
+
+
+def cantilever_uq(m, E_std: float = 5e7, samples: int = 8, seed: int = 0,
+                  outers: int = CANTILEVER_OUTERS) -> dict:
+    """The demo's UQ study on an initialised ``cantilever``: converge,
+    the tip's tangent in E (one linear solve), Monte Carlo over E (each
+    sample the moduli scaled and a re-solve from zero), and the adjoint
+    of the tip deflection with respect to the E field (one transposed
+    solve), whose sum is the same derivative (the duality).  Returns the
+    numbers with the seconds of each part."""
+    out = {}
+    t0 = time.perf_counter()
+    hist = m.advance(outers)
+    out["history"] = [float(h[1]) for h in hist]
+    out["tip"] = tip_deflection(m)
+    _sync(m.mesh.device)
+    out["s_converge"] = time.perf_counter() - t0
+    tips = tip_cells(m)
+    E_mean = float(m._E[0])
+
+    t0 = time.perf_counter()
+    dw = m.solve_tangent({"youngsModulus": 1.0})
+    out["dtip_dE"] = float(dw[tips, 1].mean())
+    out["s_tangent"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sel = torch.as_tensor(tips, device=m.mesh.device)
+    g = m.solve_adjoint(lambda w: w[sel, 1].mean(), ["youngsModulus"])
+    out["adjoint_dtip_dE"] = float(g["youngsModulus"].sum())
+    out["s_adjoint"] = time.perf_counter() - t0
+    out["duality"] = abs(out["adjoint_dtip_dE"] - out["dtip_dE"]) / abs(
+        out["dtip_dE"])
+
+    rng = np.random.default_rng(seed)
+    Es = rng.normal(E_mean, E_std, size=samples)
+    state0 = dict(m.state)
+    mu0, lam0 = m.params["mu"], m.params["lam"]
+    vals = []
+    t0 = time.perf_counter()
+    for E in Es:
+        s = E / E_mean
+        m.params = dict(m.params, mu=s * mu0, lam=s * lam0)
+        m.state = dict(state0, deformation=torch.zeros_like(
+            state0["deformation"]))
+        m._initial_norm = None
+        m.advance(outers)
+        vals.append(tip_deflection(m))
+    out["s_per_sample"] = (time.perf_counter() - t0) / samples
+    m.params = dict(m.params, mu=mu0, lam=lam0)
+    m.state = state0
+    vals = np.asarray(vals)
+    out["mc_mean"] = float(vals.mean())
+    out["mc_std"] = float(vals.std(ddof=1)) if samples > 1 else None
+    out["lin_std"] = abs(out["dtip_dE"]) * E_std
+    return out
+
+
+# ``fsi_beam``: the in-process coupling of demos/fsi_beam.py (the
+# reference's FluidStructure.py): channel flow loads an elastic wall strip
+# through its mean top-wall pressure; the strip's mean deflection moves the
+# channel's top wall (MovingMeshModel, under-relaxed increments), and the
+# flow re-solves on the moved mesh.
+
+def fsi_beam(n: int = 24, device=None, iters: int = 3, flow_outers=120,
+             dtype="float64") -> list:
+    """The demo's coupled loop; returns one dict per coupling iteration
+    (mean wall pressure, mean deflection, wall offset, fluid volume
+    change)."""
+    from .models import FlowModel, MovingMeshModel, StructureModel
+
+    mesh = quad_2d(n, n // 2, lx=2.0, ly=1.0)
+    wall_offset = 0.0
+    rows = []
+    for _ in range(iters):
+        dmesh = build_device_mesh(mesh, dtype=dtype, device=device)
+        flow = FlowModel(dmesh)
+        flow.options["verbose"] = False
+        flow.vc["viscosity"] = 0.05
+        flow.bc["left"].bc_type = "VelocityBoundary"
+        flow.bc["left"]["specifiedXVelocity"] = 1.0
+        flow.bc["right"].bc_type = "PressureBoundary"
+        flow.bc["bottom"].bc_type = "NoSlipWall"
+        flow.bc["top"].bc_type = "NoSlipWall"
+        flow.init()
+        flow.advance(flow_outers)
+
+        # the pressure on the top wall -> the structure's traction
+        sl = dmesh.group_faces(dmesh.group_by_name("top"))
+        p_f = flow.state["pressure"].index_select(
+            0, dmesh.face_cell0[sl]).cpu().numpy()
+        p_mean = float(p_f.mean())
+
+        smesh = quad_2d(n, 2, lx=2.0, ly=0.05, y0=1.0)
+        solid = StructureModel(build_device_mesh(smesh, dtype=dtype,
+                                                 device=device))
+        solid.options["verbose"] = False
+        solid.vc["youngsModulus"] = 5e3
+        solid.vc["poissonsRatio"] = 0.3
+        solid.bc["left"].bc_type = "SpecifiedDeformation"
+        solid.bc["right"].bc_type = "SpecifiedDeformation"
+        solid.bc["top"].bc_type = "ZeroTraction"
+        solid.bc["bottom"].bc_type = "SpecifiedTraction"
+        solid.bc["bottom"]["specifiedYTraction"] = -p_f.mean()
+        solid.init()
+        solid.advance(6)
+        wy = solid.getDeformation()[:, 1].reshape(n, 2).mean(axis=1)
+
+        # the wall deflection fed back as an under-relaxed increment
+        dmove = 0.5 * (float(wy.mean()) - wall_offset)
+        wall_offset += dmove
+        mm = MovingMeshModel(mesh, device=device, dtype=dtype)
+        mm.set_boundary_displacement("top", [0.0, dmove])
+        mesh, _ = mm.advance(150)
+        rows.append({"p_mean": p_mean, "w_mean": float(wy.mean()),
+                     "wall_offset": wall_offset, "vol_change": mm.volChange})
+    return rows

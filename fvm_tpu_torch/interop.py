@@ -65,7 +65,14 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
     included) has the same keys as the port model's state and loads as
     it is; so do its params, the immersed-boundary ones (``IB_PARAMS``)
     included.  New params rebuild the model's step and drop its captured
-    graphs, which read the old ones."""
+    graphs, which read the old ones.
+
+    The structures models load the same way: ``StructureModel``'s
+    deformation (n, dim), its time levels and plastic strain (n, dim, dim)
+    and its params (mu, lam, rho, body, grad_coeff); ``PlateModel``'s u
+    (n, 3), its time levels and its params (D, S, nu, rho_h, the pressure
+    load q, grad_coeff).  The bases the tangents chain-rule through and
+    the undegraded moduli stay those of the model's own VC."""
     if not getattr(model, "_initialized", False):
         raise RuntimeError("load_model_state: call model.init() first")
     mesh = model.mesh

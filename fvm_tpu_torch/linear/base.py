@@ -178,14 +178,57 @@ class MatrixFreeOperator:
         return x + omega * self.diag_solve(b - self.mv(x))
 
 
-def newton_operator(residual_fn, x):
-    """A v = -dR/dx|_x . v by one forward-mode AD product
-    (``torch.func.jvp``) per application, linearised at x."""
+def newton_operator(residual_fn, x, mode: str = "forward"):
+    """A v = -dR/dx|_x . v, linearised at x.
 
-    def mv(v):
-        return -torch.func.jvp(residual_fn, (x,), (v,))[1]
+    ``mode`` "forward": one forward-mode AD product (``torch.func.jvp``)
+    per application.  "graph" (a CUDA ``x`` only): the same product
+    captured once in a CUDA graph (``models/chunk.Graph``) and replayed
+    per application, its input copied into the graph's buffer; an eager
+    product of a small residual is some hundreds of kernel launches that
+    the host launches slower than the card runs them.  "reverse": the same
+    product as the derivative of the reverse-mode product u -> (dR/dx)^T
+    u (linear in u) with respect to u: R's graph and its backward graph
+    are built once at x, and each application is one backward pass
+    through them, run by the autograd engine with no Python per
+    operation.  All are exact; "reverse" differs from the others in the
+    rounding of the sums only."""
+    if mode == "forward":
+        def mv(v):
+            return -torch.func.jvp(residual_fn, (x,), (v,))[1]
 
-    return mv
+        return mv
+    if mode == "graph":
+        from ..models.chunk import Graph
+
+        if not x.is_cuda:
+            raise ValueError("newton_operator: mode 'graph' needs a CUDA "
+                             "tensor")
+        v_in = torch.zeros_like(x)
+
+        def product():
+            return torch.func.jvp(residual_fn, (x,), (v_in,))[1]
+
+        graph = Graph(product, product, x.device)
+
+        def mv_graph(v):
+            v_in.copy_(v)
+            graph.replay()
+            return -graph.outputs  # a new tensor: the next replay rewrites
+
+        return mv_graph
+    if mode != "reverse":
+        raise ValueError(f"newton_operator: unknown mode {mode!r}")
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        r = residual_fn(xg)
+        ub = torch.zeros_like(r, requires_grad=True)
+        (g,) = torch.autograd.grad(r, xg, ub, create_graph=True)
+
+    def mv_rev(v):
+        return -torch.autograd.grad(g, ub, v, retain_graph=True)[0]
+
+    return mv_rev
 
 
 # trips between the early-exit read-backs of the adjoint's transposed solve

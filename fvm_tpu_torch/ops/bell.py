@@ -8,13 +8,14 @@ computes the products as einsums outside any Pallas kernel, so they are
 plain PyTorch here on every device.
 
 Used by the implicitly coupled pressure-velocity systems
-(``FlowModel.advanceCoupled`` and the Newton surrogate) and, later, by
-structure, plate and battery.
+(``FlowModel.advanceCoupled`` and the Newton surrogate), by the structure
+and plate models and, later, by battery.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -115,8 +116,14 @@ class BlockELLMatrix:
     def residual(self, x, b):
         return b - self.mv(x)
 
+    @functools.cached_property
+    def diag_inv(self):
+        """The inverted diagonal blocks, computed once per matrix (an
+        instance attribute, not a field: ``replace`` drops it)."""
+        return small_inv(self.diag)
+
     def diag_solve(self, r):
-        return _bmv(small_inv(self.diag), r)
+        return _bmv(self.diag_inv, r)
 
     def jacobi_step(self, x, b, omega=1.0):
         return x + omega * self.diag_solve(b - self.mv(x))
@@ -148,12 +155,22 @@ def assemble_block(mesh, F, dF_dO, dF_dN, r_cell=None, diag_cell=None):
     eye = torch.eye(B, dtype=F.dtype, device=F.device)
     diag = torch.where(alive[:, None, None], diag, eye)
 
-    r = -torch.where(mask[:, :, None], s[:, :, None] * F[f], 0.0).sum(dim=0)
-    if r_cell is not None:
-        r = r + r_cell
-    r = torch.where(alive[:, None], r, 0.0)
+    r = residual_block(mesh, F, r_cell)
     return BlockELLMatrix(diag=diag, off=off, cols=mesh.cf_nbr,
                           mask=mask), r
+
+
+def residual_block(mesh, F, r_cell=None):
+    """The residual half of ``assemble_block`` alone: r_c = sources -
+    sum_f s F_f, zero on dead rows.  A Jacobian-free product differentiates
+    the residual only, so it skips the blocks."""
+    mask = mesh.cf_mask
+    s = torch.where(mesh.cf_is_owner, 1.0, -1.0).to(F.dtype)
+    r = -torch.where(mask[:, :, None], s[:, :, None] * mesh.take_faces(F),
+                     0.0).sum(dim=0)
+    if r_cell is not None:
+        r = r + r_cell
+    return torch.where(mask.any(dim=0)[:, None], r, 0.0)
 
 
 def _row_scale(scale, dtype, device):
@@ -169,19 +186,22 @@ def _row_scale(scale, dtype, device):
 
 def dirichlet_rows_block(mesh, A, r, gc: slice, value, x, valid=None,
                          scale=None):
-    """Ghost block rows: scale I dx_g = scale (value - x_g)."""
+    """Ghost block rows: scale I dx_g = scale (value - x_g).  ``A`` None:
+    the residual rows alone (returns None for the matrix)."""
     B = r.shape[-1]
     eye = torch.eye(B, dtype=r.dtype, device=r.device)
     sM, sv = _row_scale(scale, r.dtype, r.device)
-    diag = A.diag.clone()
-    diag[gc] = sM * eye
-    off = A.off.clone()
-    off[:, gc] = 0.0
     resid = (value - x[gc]) * sv
     if valid is not None:
         resid = torch.where(valid[:, None], resid, 0.0)
     r = r.clone()
     r[gc] = resid
+    if A is None:
+        return None, r
+    diag = A.diag.clone()
+    diag[gc] = sM * eye
+    off = A.off.clone()
+    off[:, gc] = 0.0
     return A.replace(diag=diag, off=off), r
 
 
@@ -191,15 +211,11 @@ def transform_rows_block(mesh, A, r, gc: slice, T, x, valid=None,
     projection for symmetry, identity for extrapolation):
     s (dx_g - T dx_o) = s (T x_o + extra - x_g).  The surrogate rows carry
     the compact T coupling in slot 0 (the ghost's face); an exact Newton
-    operator picks up d(extra)/dx as well."""
+    operator picks up d(extra)/dx as well.  ``A`` None: the residual rows
+    alone."""
     B = r.shape[-1]
     eye = torch.eye(B, dtype=r.dtype, device=r.device)
     sM, sv = _row_scale(scale, r.dtype, r.device)
-    diag = A.diag.clone()
-    diag[gc] = sM * eye
-    off = A.off.clone()
-    off[:, gc] = 0.0
-    off[0, gc] = -sM * T
     n_int = mesh.n_interior_cells
     own = ghost_owner_cells(mesh)[gc.start - n_int: gc.stop - n_int]
     target = _bmv(T, x[own])
@@ -210,4 +226,11 @@ def transform_rows_block(mesh, A, r, gc: slice, T, x, valid=None,
         resid = torch.where(valid[:, None], resid, 0.0)
     r = r.clone()
     r[gc] = resid
+    if A is None:
+        return None, r
+    diag = A.diag.clone()
+    diag[gc] = sM * eye
+    off = A.off.clone()
+    off[:, gc] = 0.0
+    off[0, gc] = -sM * T
     return A.replace(diag=diag, off=off), r

@@ -1,7 +1,7 @@
 """How far the JAX package's own residual histories move under round-off.
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
-        ib,channel,homocase,electric,goldens]
+        ib,channel,homocase,electric,goldens,structures]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -36,7 +36,15 @@ all by default):
   and JACOBI: ``cavity/<family>/np1`` (30 SIMPLE outers, the viscosity
   scaled) and ``thermal/<family>/np1`` (10 outers, the left wall
   temperature scaled; not for JACOBI, which has no thermal golden), each
-  also against its pinned history in ``tests/goldens/histories.json``.
+  also against its pinned history in ``tests/goldens/histories.json``;
+* ``structures``: the JFNK models with their default inner solves and
+  with inner solves at 1e-12: the cantilever of ``demos/cantilever_uq.py``
+  (40 x 6, 15 outers, the end traction scaled), the plate strip of
+  ``tests/test_plate.py:42`` (30 x 4, 8 outers, the load scaled): the
+  residual histories and the largest relative change of the deformation;
+  and the MEMS switch of ``tests/test_mems.py`` (nx 24, ny_gap 12, the
+  Young's modulus scaled): the lumped stiffness and w_max at 0.3 and 0.6
+  V_PI.
 
 A port held against these histories cannot be held tighter than this
 spread; the port's parity tests run the Newton and Poiseuille
@@ -216,6 +224,8 @@ def main() -> int:
               f"{spread(*hs):.3e}", flush=True)
     if "goldens" in cases:
         _goldens(jfvm, JFlow, spread)
+    if "structures" in cases:
+        _structures(jfvm, spread)
     if "newton" not in cases:
         if "poiseuille" in cases:
             _poiseuille(JFlow, jfvm, spread)
@@ -321,5 +331,80 @@ def _poiseuille(JFlow, jfvm, spread):
           f"{spread(*hs):.3e}", flush=True)
 
 
+def _structures(jfvm, spread):
+    """The ``structures`` case: each configuration from inputs 1e-15
+    apart, with the default inner solve and with one at 1e-12."""
+    import runpy
+    from pathlib import Path
+
+    from fvm_tpu.linear import BiCGStab, JacobiSolver
+    from fvm_tpu.models import PlateModel, StructureModel
+
+    def cantilever(eps, tight):
+        dm = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(
+            40, 6, lx=1.0, ly=0.1))
+        m = StructureModel(dm)
+        m.options["verbose"] = False
+        m.vc["youngsModulus"] = 1e9
+        m.vc["poissonsRatio"] = 0.0
+        m.bc["left"].bc_type = "SpecifiedDeformation"
+        m.bc["right"].bc_type = "SpecifiedTraction"
+        m.bc["right"]["specifiedYTraction"] = -1e4 * (1 + eps)
+        m.bc["top"].bc_type = "ZeroTraction"
+        m.bc["bottom"].bc_type = "ZeroTraction"
+        if tight:
+            m.options["linearSolver"] = BiCGStab(
+                preconditioner=JacobiSolver(sweeps=3),
+                relative_tolerance=1e-12, max_iterations=1000)
+        m.init()
+        return [r[1] for r in m.advance(15)], m.getDeformation()
+
+    def plate(eps, tight):
+        dm = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(
+            30, 4, lx=1.0, ly=0.2))
+        m = PlateModel(dm)
+        m.options["verbose"] = False
+        m.vc["ym"] = 1e9
+        m.vc["nu"] = 0.0
+        m.vc["thickness"] = 0.02
+        m.vc["pressure"] = 100.0 * (1 + eps)
+        m.bc["left"].bc_type = "Clamped"
+        m.bc["right"].bc_type = "Free"
+        m.bc["bottom"].bc_type = "Symmetry"
+        m.bc["top"].bc_type = "Symmetry"
+        if tight:
+            m.options["linearSolver"] = BiCGStab(
+                preconditioner=JacobiSolver(sweeps=3),
+                relative_tolerance=1e-12, max_iterations=1000)
+        m.init()
+        return [r[1] for r in m.advance(8)], m.getDeflection()
+
+    for name, fn in (("cantilever 40x6", cantilever),
+                     ("plate strip 30x4", plate)):
+        for tight in (False, True):
+            (h0, w0), (h1, w1) = fn(0.0, tight), fn(1e-15, tight)
+            n = min(len(h0), len(h1))
+            print(f"{name}, {'inner 1e-12' if tight else 'default inner'}:"
+                  f" outers {len(h0)}/{len(h1)}, history max rel "
+                  f"difference {spread(h0[:n], h1[:n]):.3e}; deformation "
+                  f"{float(np.abs(w0 - w1).max() / np.abs(w0).max()):.3e}",
+                  flush=True)
+
+    demo = Path(__file__).resolve().parent.parent / "demos" / \
+        "simulator_mems.py"
+    mod = runpy.run_path(str(demo))
+    rows = []
+    for eps in (0.0, 1e-15):
+        sw = mod["MemsSwitch"](nx=24, ny_gap=12, E=160e3 * (1 + eps))
+        k = sw.lumped_stiffness()
+        V = np.sqrt(8.0 * k * sw.g0**3 / (27.0 * mod["EPS0"] * sw.L * sw.W))
+        rows.append([k] + [float(sw.static_deflection(f * V).max())
+                           for f in (0.3, 0.6)])
+    print(f"MEMS switch nx 24: k, w_max(0.3 V_PI), w_max(0.6 V_PI) "
+          f"{rows[0]} / {rows[1]}; max rel difference "
+          f"{spread(rows[0], rows[1]):.3e}", flush=True)
+
+
 if __name__ == "__main__":
     raise SystemExit(main())
+

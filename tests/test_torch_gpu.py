@@ -974,3 +974,128 @@ def test_flow_sensitivities_cuda_match_cpu(cuda):
     for k in b["adjoint"]:
         assert np.abs(a["adjoint"][k] - b["adjoint"][k]).max() <= 1e-9 * \
             np.abs(b["adjoint"][k]).max()
+
+
+# --- the structures and MEMS family -----------------------------------------
+
+def _both(fn):
+    """``fn(device)`` on the card and on the CPU."""
+    return fn(torch.device("cuda", 0)), fn(torch.device("cpu"))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+@pytest.mark.parametrize("mode", ["graph", "reverse", "forward"])
+def test_structure_cuda_matches_cpu(cuda, mode):
+    """The cantilever (JFNK, each ``newton_operator`` mode on the card, the
+    CPU's own there): deformation, the tangent in E and the adjoint of the
+    tip."""
+    from fvm_tpu_torch.cases import cantilever, tip_cells
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+
+    def run(dev):
+        m = cantilever(20, 4, device=dev)
+        if dev.type == "cuda":
+            op = m._jfnk_operator
+            m._jfnk_operator = lambda *a: op(*a, mode=mode)
+        # inner solves at 1e-12: at the default 1e-6 the tangent and the
+        # adjoint move by ~1e-8 between devices (round-off in the solves)
+        m.options["linearSolver"] = BiCGStab(
+            preconditioner=JacobiSolver(sweeps=3), relative_tolerance=1e-12,
+            max_iterations=1000)
+        m.options["linearSolver"].exit_every = 10
+        m._drop_compiled()
+        m.advance(6)
+        tips = torch.as_tensor(tip_cells(m), device=dev)
+        g = m.solve_adjoint(lambda w: w[tips, 1].mean(), ["youngsModulus"])
+        return (m.getDeformation(), m.solve_tangent({"youngsModulus": 1.0}),
+                g["youngsModulus"])
+
+    for a, b in zip(*_both(run)):
+        assert _rel(a, b) <= 1e-8
+
+
+def test_plate_cuda_matches_cpu(cuda):
+    """The MEMS strip's lumped stiffness and a transient step."""
+    from fvm_tpu_torch.cases import mems_switch
+
+    def run(dev):
+        sw = mems_switch(16, 8, device=dev)
+        k = sw.lumped_stiffness()
+        p = sw.plate
+        p.options["transient"] = True
+        p.options["timeStep"] = 2e-7
+        p.init()
+        p.set_pressure(np.full(p.mesh.n_cells, -1e-3))
+        p.advance(3)
+        return k, p.getDeflection(), p.getRotations()
+
+    for a, b in zip(*_both(run)):
+        assert _rel(a, b) <= 1e-8
+
+
+def test_mems_gap_and_film_launch_the_kernel(cuda):
+    """One coupling iteration of the switch and a squeeze-film solve on the
+    card: both solve through ``dia_stencil`` (float64), and agree with the
+    CPU."""
+    from fvm_tpu_torch.cases import mems_switch
+
+    def run(dev):
+        sw = mems_switch(16, 8, device=dev)
+        w = 0.1 * np.sin(np.pi * sw.xp / sw.L) ** 2
+        dk.reset_launches()
+        p_es = sw.electrostatic_pressure(w, 5.0)
+        sw.film.set_gap(sw.g0 - w, -w)
+        sw.film.advance(3)
+        return p_es, sw.film.getPressure(), dk.type_launches(torch.float64)
+
+    (pg, fg, lg), (pc, fc, _) = _both(run)
+    assert lg["residual"] > 0 and lg["jacobi"] > 0
+    assert _rel(pg, pc) <= 1e-8 and _rel(fg, fc) <= 1e-8
+
+
+def test_fracture_and_small_models_cuda_match_cpu(cuda):
+    from fvm_tpu_torch.models import (FractureModel, OneDConduction,
+                                      ShockTube)
+
+    def run(dev):
+        fr = FractureModel(build_device_mesh(quad_2d(12, 12),
+                                             dtype="float64", device=dev))
+        fr.options["verbose"] = False
+        fr.vc["fractureSource"] = 1.0
+        fr.vc["fractureSourceCoef"] = 4.0
+        for g in ("left", "right", "bottom", "top"):
+            fr.bc[g].bc_type = "Symmetry"
+        fr.bc["left"].bc_type = "Dirichlet"
+        fr.init()
+        for _ in range(3):
+            fr.advance(5)
+            fr.updateTime()
+        od = OneDConduction(nx=30, device=dev)
+        od.setBoundaryTemperatures(1.0, 0.0)
+        ks = np.exp(np.random.default_rng(0).normal(0, 0.3, (8, 30)))
+        return (fr.getPhaseFieldValue(), od.solve_mc(ks).cpu().numpy(),
+                ShockTube(nx=100, device=dev).run(0.1).primitives()[0])
+
+    for a, b in zip(*_both(run)):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_motion_cuda_matches_cpu(cuda):
+    """Mesh smoothing (index_add with atomics on the card) and the
+    deformation mapping's weights."""
+    from fvm_tpu_torch.models import MovingMeshModel
+    from fvm_tpu_torch.models.motion import node_cell_weights
+
+    def run(dev):
+        mm = MovingMeshModel(quad_2d(16, 12), device=dev)
+        mm.set_boundary_displacement("top", [0.02, 0.1])
+        new, dm = mm.advance(80, dt=0.5)
+        w = node_cell_weights(quad_2d(16, 12), dev)[2].cpu().numpy()
+        return new.coords, mm.sweptVolDot, w, [mm.volChange]
+
+    for a, b in zip(*_both(run)):
+        assert _rel(a, b) <= 1e-12
