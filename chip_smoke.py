@@ -130,7 +130,7 @@ script exits non-zero before the last line):
                 sweep against its bound, its plain version and
                 ``torch.addmv``; one outer as a graph replay (bit for bit
                 against the eager outer); cuda against cpu at 64^2
-                float64 over 10 outers with tight inner solves (the CPU
+                float64 over 5 outers with tight inner solves (the CPU
                 runs in child processes beside the card's);
  19. plate    - the two-material plate (``cases.two_material_plate``: a
                 contact-resistance interface and periodic walls) cuda
@@ -191,6 +191,34 @@ script exits non-zero before the last line):
                 source-steady case and the squeeze-film strip at
                 quad_2d(1024, 1024) float64 against their exact fields,
                 with their fine levels' kernel rows;
+ 26. charging - the charge-transport half of ``ElectricModel`` (injection,
+                capture, Poole-Frenkel emission and trap-band tunneling,
+                transient) at 64 x 16 cuda against cpu and at
+                quad_2d(512, 512) float64, with its charge matrix's kernel
+                rows; ``DielectricChargingModel`` on the column stand-in
+                for the absent 1x1x1000.cas (``cases.dielectric_column``)
+                over 3 of the reference script's 100 steps cuda against
+                cpu, then one step of the 16 x 16 membrane of columns
+                (``cases.charging_membrane``, 256,000 cells): s per step,
+                coefficient evaluation and Newton solve, Krylov trips per
+                Newton step, peak memory, the potential solve's residual,
+                the averages against the column's, and the internal
+                electrostatics' kernel rows;
+ 27. ke       - ``KeModel`` over the 32^2 float64 cavity's flow cuda
+                against cpu, then over bench's 1024^2 float32 cavity after
+                its replayed outers (``cases.ke_cavity``): ms per outer
+                eager and as ``outerChunk`` graph replays (bit for bit
+                against eager), ``dia_stencil`` launches per outer, the LS
+                gradients' share, a profiled outer, the fine level's rows;
+ 28. battery  - ``BatteryModel`` on ``demos/battery_cell.py``'s half cell
+                (``cases.battery_cell``) at 32 x 4 cuda against cpu (two
+                time steps; the tangent and the adjoint in sigma, timed,
+                and their duality), at 256 x 32, the largest fvm_tpu
+                converges (``scripts/battery_scale.py``): s per Newton step
+                and per time step, the Li balance against -dt I / F,
+                kernels and idle share of a profiled Newton step; and one
+                capped Newton step at quad_2d(1024, 1024);
+Each phase prints its seconds (``done`` lines).
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
 ``(converge)`` rows and the suite's in the ``(suite)`` rows, timed at the
@@ -198,7 +226,9 @@ channel's and the card-size prisms' fine levels; the ILU sweep and the
 plate's fine level in their own rows; the sensitivities' in the
 ``(sensitivity, f64)`` and ``(cavity sensitivities)`` rows; the
 structures family's in the ``(mems gap, f64)``, ``(fracture, f64)`` and
-``(squeeze film, f64)`` rows) and, last, the device JSON line.
+``(squeeze film, f64)`` rows; the remaining models' in the ``(charge
+transport, f64)``, ``(charging electrostatics, f64)`` and ``(ke)`` rows)
+and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
 """
@@ -292,6 +322,9 @@ ANDERSON_STEPS = 60
 # run must end below the float32 floor it started the endgame from
 CONVERGE_NEWTON = 1
 CONVERGE_REACH = None
+# the chunk's replays profiled for its idle share (of its 20; profiling all
+# of them cost ~70 s of host time)
+CONVERGE_PROFILED = 2
 
 
 def log(phase, msg):
@@ -1381,7 +1414,9 @@ def converge_phase(device, kernels, result=None):
     log("converge", "dia_stencil launches in the converge run: " + "; ".join(
         f"{dk.type_tag(t)} " + ", ".join(f"{m} {v}" for m, v in d.items())
         for t, d in launches.items()))
-    # the device idle share of one chunk replay, profiled
+    # the device idle share of a chunk: its replays timed, and
+    # CONVERGE_PROFILED of them profiled (the profiler's own cost grows
+    # with the kernels it records, ~25,000 a replay)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     inner.run_chunk(0.1)
@@ -1389,20 +1424,23 @@ def converge_phase(device, kernels, result=None):
     chunk_ms = 1e3 * (time.perf_counter() - t1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        inner.run_chunk(0.1)
+        for _ in range(CONVERGE_PROFILED):
+            inner.trips.replay()
         torch.cuda.synchronize()
+    part_ms = chunk_ms * CONVERGE_PROFILED / inner.n_replays
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                   for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  reverse=True)[:8]
-    idle = (f"{busy:.3f} ms in a profiled one "
-            f"({100 - 100 * busy / chunk_ms:.1f}% idle; the profiler's own "
+    idle = (f"{busy:.3f} ms in {CONVERGE_PROFILED} profiled replays, "
+            f"{part_ms:.3f} ms of the unprofiled chunk's time "
+            f"({100 - 100 * busy / part_ms:.1f}% idle; the profiler's own "
             f"cost can make this negative)" if busy else
             "not measured (no device events)")
     log("converge", f"one chunk ({inner.chunk} iterations, "
-        f"{inner.n_replays} replays): {chunk_ms:.3f} ms unprofiled, device "
+        f"{inner.n_replays} replays): {chunk_ms:.3f} ms unprofiled; device "
         f"busy {idle}")
     for ms, n, key in top:
         log("converge", f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
@@ -1802,11 +1840,11 @@ def electrostatics_phase(device, suite, errors, smi):
 FAMILY_OUTERS = {"ILU0": 2, "SPIKE": 1}
 FAMILY_PROFILED = ("ILU0",)
 FAMILY_PROFILE_REPS = 20
-# cuda against cpu at 64^2 float64 over 10 outers with the inner solves
-# tightened to 1e-10 (cases.tighten_family), held at
-# cases.FAMILY_TIGHT_RTOL
+# cuda against cpu at 64^2 float64 over 5 outers (10 until the remaining
+# models' phases needed the time) with the inner solves tightened to 1e-10
+# (cases.tighten_family), held at cases.FAMILY_TIGHT_RTOL
 FAMILY_SLICE_N = 64
-FAMILY_SLICE_OUTERS = 10
+FAMILY_SLICE_OUTERS = 5
 # phase 19: the plate at card size to a 1e-10 relative residual; its max
 # abs error against the exact series profile (K, temperatures of 300-400)
 # and the Mixed variant's energy balance (the heat flows over all groups
@@ -1860,8 +1898,9 @@ def count_applies(solver, label, counts):
 
 
 def family_histories(device, families=("ILU0", "SPIKE")):
-    """Per family, the residual histories of 10 coupled outers of the 64^2
-    float64 family cavity with tight inner solves on ``device``."""
+    """Per family, the residual histories of FAMILY_SLICE_OUTERS coupled
+    outers of the 64^2 float64 family cavity with tight inner solves on
+    ``device``."""
     from fvm_tpu_torch.cases import (cavity_family, coupled_step,
                                      tighten_family)
 
@@ -2577,30 +2616,43 @@ def transpose_rows(tag, mesh, m, launches, dtype_name, device):
                       errors, dtype_name)
 
 
-def cavity_gates(device):
-    """Phase 22's gates at 32^2 float64 with tightened inner solves: the
-    cavity's sensitivities on the card against the CPU's, and the
-    truncated duality on both."""
+def cavity_gate_run(dev):
+    """Phase 22's gate on ``dev`` (a device or its name): the 32^2 float64
+    cavity's sensitivities with tightened inner solves, as plain
+    numbers."""
+    import torch
     from fvm_tpu_torch.cases import (cavity_sensitivities, coupled_cavity,
                                      tighten_cavity)
 
-    import torch
+    t0 = time.perf_counter()
+    flow, _ = coupled_cavity(CAVITY_GATE_N, device=torch.device(dev),
+                             dtype="float64")
+    tighten_cavity(flow)
+    flow.advance(CAVITY_GATE_OUTERS)
+    out = cavity_sensitivities(flow, niter=CAVITY_GATE_NITER)
+    return {"tangent": np.asarray(out["tangent"]).tolist(),
+            "adjoint": {k: np.asarray(v).tolist()
+                        for k, v in out["adjoint"].items()},
+            "dual": out["dual"], "gap": out["gap"],
+            "s": time.perf_counter() - t0}
 
-    res = []
-    for dev in (device, torch.device("cpu")):
-        t0 = time.perf_counter()
-        flow, _ = coupled_cavity(CAVITY_GATE_N, device=dev, dtype="float64")
-        tighten_cavity(flow)
-        flow.advance(CAVITY_GATE_OUTERS)
-        out = cavity_sensitivities(flow, niter=CAVITY_GATE_NITER)
-        log("cavsens", f"{CAVITY_GATE_N}^2 float64 on {dev.type}: tangent "
-            f"force {out['tangent'].tolist()}, <grad mu, 1> {out['dual']:.12e}"
+
+def cavity_gates(device):
+    """Phase 22's gates at 32^2 float64 with tightened inner solves: the
+    cavity's sensitivities on the card against the CPU's (in a child
+    process beside the card's run), and the truncated duality on both."""
+    child = spawn_cpu("cavity_gate_run('cpu')")
+    res = [cavity_gate_run(device), child_result(child, "cavsens")]
+    for dev, out in zip(("cuda", "cpu"), res):
+        log("cavsens", f"{CAVITY_GATE_N}^2 float64 on {dev}: tangent "
+            f"force {out['tangent']}, <grad mu, 1> {out['dual']:.12e}"
             f", truncated duality gap {out['gap']:.3e} (tol "
-            f"{CAVITY_GATE_RTOL:g}) in {time.perf_counter() - t0:.2f} s")
+            f"{CAVITY_GATE_RTOL:g}) in {out['s']:.2f} s")
         if not out["gap"] <= CAVITY_GATE_RTOL:
-            raise AssertionError(f"truncated duality on {dev.type}")
-        res.append(out)
-    a, b = res
+            raise AssertionError(f"truncated duality on {dev}")
+    a, b = ({"tangent": np.asarray(r["tangent"]),
+             "adjoint": {k: np.asarray(v) for k, v in r["adjoint"].items()}}
+            for r in res)
     worst = float(np.max(np.abs(a["tangent"] - b["tangent"])
                          / np.abs(b["tangent"]).max()))
     for k in b["adjoint"]:
@@ -2730,7 +2782,6 @@ MOTION_N = 1024
 MOTION_SWEEPS = 50
 GATE_RTOL = 1e-8
 GATE_PARTS = ("mems", "rest")  # one CPU child each
-_cpu_gates = {}
 
 
 class BudgetSpent(Exception):
@@ -2860,17 +2911,63 @@ def tight_jfnk(m):
     m._drop_compiled()
 
 
+# every child process started, killed at exit; and those started ahead
+# of their phase (``start_early``), by call
+_children = []
+_early = {}
+
+
 def spawn_cpu(call: str, threads: int = 1):
     """``chip_smoke.<call>`` in a child process, its result printed as JSON
-    (the CPU side of a cuda-against-cpu gate, run beside the card's)."""
+    (the CPU side of a cuda-against-cpu gate, run beside the card's); the
+    child ``start_early`` started for the same call, if there is one."""
+    import atexit
     import os
     from pathlib import Path
 
-    return subprocess.Popen(
+    child = _early.pop(call, None)
+    if child is not None:
+        return child
+    if not _children:
+        atexit.register(kill_children)
+    child = subprocess.Popen(
         [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
          f"chip_smoke.{call}))"],
         cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
         text=True, env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
+    _children.append(child)
+    return child
+
+
+def start_early(calls):
+    """Start the CPU sides ``calls`` ((call, threads) pairs) now, ahead of
+    the phases that wait for them (the same checks, less waiting)."""
+    for call, threads in calls:
+        if call not in _early:
+            child = spawn_cpu(call, threads)
+            _early[call] = child
+
+
+def early_cpu_sides(group: str):
+    """The CPU sides of phase 13, of phases 18-22 or of phases 23-28
+    (``group`` "13", "18-22" or "23-28") as ``start_early`` pairs."""
+    if group == "13":
+        return [(f"newton_cpu_side({p})", 3)
+                for p in range(len(NEWTON_CPU_PARTS))]
+    if group == "18-22":
+        return [(f"family_histories('cpu', ({f!r},))", 1)
+                for f in ("ILU0", "SPIKE")] + [("cavity_gate_run('cpu')", 1)]
+    return (gate_calls("structures_gates", GATE_PARTS)
+            + gate_calls("models_gates", MODEL_PARTS))
+
+
+def kill_children():
+    """Stop every child process still running (at exit, a failed phase
+    included)."""
+    for child in _children:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
 
 
 def child_result(child, what: str):
@@ -2887,23 +2984,35 @@ def child_result(child, what: str):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def start_cpu_gates():
-    """Start ``structures_gates('cpu')`` in child processes, one per part
-    (once)."""
-    if "children" not in _cpu_gates:
-        _cpu_gates["children"] = [
-            spawn_cpu(f"structures_gates('cpu', ({part!r},))")
-            for part in GATE_PARTS]
+_gates = {}  # by (gate function's name, "cuda" or "cpu")
 
 
-def cpu_gates():
-    """The children's results, merged (waits for them)."""
-    if "result" not in _cpu_gates:
+def gate_calls(fn: str, parts):
+    """The CPU side of ``chip_smoke.<fn>``, one child per part, as
+    ``start_early`` pairs."""
+    return [(f"{fn}('cpu', ({p!r},))", 1) for p in parts]
+
+
+def gates(fn: str, parts, device):
+    """``chip_smoke.<fn>``'s (``structures_gates`` or ``models_gates``)
+    results, once each. On the card: run here, its CPU side started first
+    in child processes (those ``start_early`` started are taken over). On
+    "cpu": those children's results, merged (waits for them)."""
+    key = (fn, "cpu" if device == "cpu" else "cuda")
+    if key in _gates:
+        return _gates[key]
+    if device == "cpu":
         out = {}
-        for child in _cpu_gates.pop("children"):
-            out.update(child_result(child, "the structures gates"))
-        _cpu_gates["result"] = out
-    return _cpu_gates["result"]
+        for call, _ in gate_calls(fn, parts):
+            out.update(child_result(spawn_cpu(call), fn))
+    else:
+        start_early(gate_calls(fn, parts))
+        t0 = time.perf_counter()
+        out = globals()[fn](device, parts)
+        log("gates", f"{fn} on the card in {time.perf_counter() - t0:.1f} s "
+            f"(its CPU side runs in child processes meanwhile)")
+    _gates[key] = out
+    return out
 
 
 def gate_diff(a, b):
@@ -2912,13 +3021,26 @@ def gate_diff(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-def check_gates(phase, cuda, cpu, keys, rtol=GATE_RTOL):
-    """Log and hold each ``keys`` entry of the two gate dicts."""
+def column_diffs(a, b):
+    """``gate_diff`` of each last-axis column on its own scale (columns of
+    very different sizes, as the charging model's trapped and band
+    charges)."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return [gate_diff(a[..., j], b[..., j]) for j in range(b.shape[-1])]
+
+
+def check_gates(phase, cuda, cpu, keys, rtol=GATE_RTOL, columns=()):
+    """Log and hold each ``keys`` entry of the two gate dicts; those also
+    in ``columns`` column by column (``column_diffs``)."""
     for k in keys:
-        d = gate_diff(cuda[k], cpu[k])
-        log(phase, f"cuda vs cpu {k}: max rel diff {d:.3e} (tol {rtol:g})")
-        if not d <= rtol:
-            raise AssertionError(f"{phase}: {k} differs: {d:.3e}")
+        ds = (column_diffs(cuda[k], cpu[k]) if k in columns
+              else [gate_diff(cuda[k], cpu[k])])
+        log(phase, f"cuda vs cpu {k}: max rel diff "
+            + ", ".join(f"{d:.3e}" for d in ds)
+            + (" (column by column)" if k in columns else "")
+            + f" (tol {rtol:g})")
+        if not max(ds) <= rtol:
+            raise AssertionError(f"{phase}: {k} differs: {max(ds):.3e}")
 
 
 class SolveClock:
@@ -2977,20 +3099,28 @@ def level_launches(shapes):
     return "; ".join(parts)
 
 
-def fine_rows(tag, label, model, solver_key, launches, device):
-    """The kernel against its plain version at the fine level of
-    ``model``'s AMG hierarchy (bit for bit), then the ``kernels`` rows of
-    that shape with ``launches`` (float64, (n,))."""
+def mesh_fine(mesh):
+    """The fine level's shape of a device mesh's matrices as the solvers
+    see them (the condensed DIA structure where there is one)."""
     from fvm_tpu_torch.tools import kernel_bench as kb
 
-    amg = model.options[solver_key].preconditioner
-    fine = kb.level_shapes(amg, model.mesh)[0]
+    fine = mesh.dia
+    if fine is not None and fine.cond_plan is not None:
+        fine = fine.cond_plan.dia2
+    return kb._shape(mesh.n_cells, fine)
+
+
+def shape_rows(tag, label, mesh, launches, device, dtype_name):
+    """The kernel against its plain version at ``mesh``'s fine level (bit
+    for bit), then the ``kernels`` rows of that shape with ``launches``
+    ((n,) vectors)."""
+    fine = mesh_fine(mesh)
     errors = {}
     kernel_vs_plain(label, fine.rows, fine.offsets, device, errors,
-                    nrhs=(1,), dia=fine.dia, dtypes=("float64",))
+                    nrhs=(1,), dia=fine.dia, dtypes=(dtype_name,))
     return time_modes(tag, fine.rows, fine.offsets,
                       (("mv", 1), ("residual", 1), ("jacobi", 1)), launches,
-                      errors, "float64")
+                      errors, dtype_name)
 
 
 def mems_phase(device, smi):
@@ -3000,12 +3130,7 @@ def mems_phase(device, smi):
     from fvm_tpu_torch.ops import dia_kernel as dk
     from fvm_tpu_torch.tools import kernel_bench as kb
 
-    start_cpu_gates()
-    t0 = time.perf_counter()
-    gpu = _cpu_gates["gpu"] = structures_gates(device)
-    log("mems", f"the gates (phases 23-25's small cases) on the card in "
-        f"{time.perf_counter() - t0:.1f} s (their CPU side runs in child "
-        f"processes meanwhile)")
+    gpu = gates("structures_gates", GATE_PARTS, device)
 
     # ---- the published geometry at MEMS_CARD
     nx, ny = MEMS_CARD
@@ -3126,7 +3251,7 @@ def mems_phase(device, smi):
     if not launches["residual"]:
         raise AssertionError("mems: the gap solves never launched the kernel")
     t0 = time.perf_counter()
-    cpu = cpu_gates()
+    cpu = gates("structures_gates", GATE_PARTS, "cpu")
     log("mems", f"switch nx {MEMS_GATE[0]}, ny_gap {MEMS_GATE[1]} float64: "
         f"k cuda {gpu['mems']['k']!r} cpu {cpu['mems']['k']!r}; pull-in at "
         f"1.4 V_PI cuda {gpu['mems']['pulled']} cpu {cpu['mems']['pulled']} "
@@ -3134,8 +3259,8 @@ def mems_phase(device, smi):
     check_gates("mems", gpu["mems"], cpu["mems"], ("k", "w3", "w6"))
     if not (gpu["mems"]["pulled"] and cpu["mems"]["pulled"]):
         raise AssertionError("mems: 1.4 V_PI does not pull in")
-    return fine_rows(" (mems gap, f64)", "MEMS gap fine level", sw.elec,
-                     "electrostaticsLinearSolver", launches, device)
+    return shape_rows(" (mems gap, f64)", "MEMS gap fine level",
+                      sw.elec.mesh, launches, device, "float64")
 
 
 def struct_phase(device, smi):
@@ -3143,13 +3268,10 @@ def struct_phase(device, smi):
     import torch
     from fvm_tpu_torch import cases
     from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
-    from fvm_tpu_torch.models.structure import product_mode
+    from fvm_tpu_torch.linear.base import product_mode
 
-    gpu = _cpu_gates.get("gpu")
-    if gpu is None:
-        start_cpu_gates()
-        gpu = _cpu_gates["gpu"] = structures_gates(device)
-    cpu = cpu_gates()
+    gpu = gates("structures_gates", GATE_PARTS, device)
+    cpu = gates("structures_gates", GATE_PARTS, "cpu")
     log("struct", f"cantilever {CANT_GATE[0]} x {CANT_GATE[1]} float64: tip "
         f"cuda {gpu['cant']['tip']!r} cpu {cpu['cant']['tip']!r}; duality "
         f"cuda {gpu['cant']['duality']:.3e} cpu {cpu['cant']['duality']:.3e}")
@@ -3242,11 +3364,8 @@ def motion_phase(device, smi):
     from fvm_tpu_torch.models import FractureModel, MovingMeshModel
     from fvm_tpu_torch.ops import dia_kernel as dk
 
-    gpu = _cpu_gates.get("gpu")
-    if gpu is None:
-        start_cpu_gates()
-        gpu = _cpu_gates["gpu"] = structures_gates(device)
-    cpu = cpu_gates()
+    gpu = gates("structures_gates", GATE_PARTS, device)
+    cpu = gates("structures_gates", GATE_PARTS, "cpu")
     for i, (a, b) in enumerate(zip(gpu["fsi"], cpu["fsi"])):
         check_gates("motion", a, b, ("p_mean", "w_mean", "vol_change"))
     log("motion", f"FSI beam n {FSI_GATE_N}: " + "; ".join(
@@ -3317,8 +3436,8 @@ def motion_phase(device, smi):
             f"{k} {v}" for k, v in launches.items()) + f" [{smi}]")
     if not err <= 1e-8:
         raise AssertionError("motion: the fracture field is off")
-    rows += fine_rows(" (fracture, f64)", "fracture fine level", fr,
-                      "linearSolver", launches, device)
+    rows += shape_rows(" (fracture, f64)", "fracture fine level", fr.mesh,
+                       launches, device, "float64")
     del fr
     gc.collect()
 
@@ -3348,12 +3467,508 @@ def motion_phase(device, smi):
     if not (perr <= ptol and abs(F - F_exact) <= 5e-3 * F_exact
             and abs(ratio - 8.0) <= 8e-5):
         raise AssertionError("motion: the squeeze film is off")
-    rows += fine_rows(" (squeeze film, f64)", "squeeze-film fine level", sq,
-                      "linearSolver", launches, device)
+    rows += shape_rows(" (squeeze film, f64)", "squeeze-film fine level",
+                       sq.mesh, launches, device, "float64")
     del sq
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+# ---- phases 26-28: the remaining models ----------------------------------
+# cuda-against-cpu gates (the CPU side in two child processes, one thread,
+# beside the card's work), then the card-size runs
+CHARGE_GATE_N = 1000  # the column stand-in for the absent 1x1x1000.cas
+# of the reference script's 100 steps: cut by time (~2,300 Krylov trips a
+# step: 8 s a step on one CPU thread, 5.7 s on the card)
+CHARGE_GATE_STEPS = 3
+CHARGE_MEMBRANE = (16, 16)  # columns of the card-size membrane
+CHARGE_MEMBRANE_STEPS = 1  # 21 s a step on the card
+# the membrane's averages against the column's, each on its own scale.
+# Its internal potential solve (the default BiCGStab(AMG) at 1e-10, 50
+# iterations, as in fvm_tpu) stops at its cap at 7.5e-5 of its first
+# residual on the 256,000 cells, where the column's converges: the trapped
+# average then agrees to 1.3e-7, the band average only to 5.2e-6.  Given
+# the iterations to converge (107, early exit every 10), as the column's
+# does, they agree to 5.5e-14 and 1.9e-12 (measured on an NVIDIA H100 80GB
+# HBM3 at 700 W).
+CHARGE_MEMBRANE_RTOL = 1e-10
+CHARGE_MEMBRANE_POTENTIAL_ITERS = 400
+TRANSPORT_GATE = (64, 16)  # with DIA structure, so the gate launches it
+TRANSPORT_CARD = 512
+TRANSPORT_STEPS = 2
+TRANSPORT_OUTERS = 3
+KE_GATE_N = 32
+KE_GATE_FLOW = 20  # coupled outers before the k-epsilon steps
+KE_CARD_FLOW = 10  # replayed coupled outers of the 1024^2 cavity
+KE_STEPS = 2
+KE_OUTERS = 3
+BATTERY_GATE = (32, 4)  # demos/battery_cell.py's main()
+BATTERY_GATE_STEPS = 2
+BATTERY_CARD = (256, 32)  # the largest cell fvm_tpu converges
+BATTERY_CARD_STEPS = 1
+BATTERY_CAP = (1024, 1024)  # 1,048,576 cells, capped
+BATTERY_CAP_TRIPS = 20
+BATTERY_PROFILE_TRIPS = 10
+MODEL_PARTS = ("charging", "rest")  # one CPU child each
+
+
+def transport_model(nx, ny, device):
+    """ElectricModel with every charge-transport option on (injection,
+    capture, Poole-Frenkel emission, trap-band tunneling; transient) over
+    quad_2d(nx, ny) on 1 x ny/nx, 10 V across x."""
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models import EPS0, ElectricModel
+
+    m = ElectricModel(build_device_mesh(quad_2d(nx, ny, ly=ny / nx),
+                                        dtype="float64", device=device))
+    m.options["verbose"] = False
+    for k in ("chargetransport_enable", "injection_enable",
+              "trapping_enable", "poole_frenkel_enable",
+              "trapbandtunneling_enable", "transient"):
+        m.options[k] = True
+    m.options["timeStep"] = 0.05
+    for k, v in {"dielectric_constant": 1.0 / EPS0, "initialCharge": 1e-6,
+                 "mobility": 1e-3, "diffusivity": 1e-4, "injectionA": 1e-5,
+                 "injectionB": 5.0, "trapDensity": 1.0,
+                 "captureCoefficient": 0.5, "emissionCoefficient": 0.01,
+                 "emissionFrequency": 1.0, "pfBeta": 0.15,
+                 "thermalVoltage": 0.5, "trapDepth": 2.0, "wkbFactor": -3.0,
+                 "tunnelingRateScale": 1.0}.items():
+        m.vc[k] = v
+    for g, V in (("left", 0.0), ("right", 10.0)):
+        m.bc[g].bc_type = "SpecifiedPotential"
+        m.bc[g]["specifiedPotential"] = V
+    m.bc["bottom"].bc_type = m.bc["top"].bc_type = "Symmetry"
+    m.init()
+    return m
+
+
+def transport_steps(m, steps, outers):
+    """``steps`` time steps of at most ``outers`` outer iterations each;
+    the outer iterations taken."""
+    taken = 0
+    for _ in range(steps):
+        taken += len(m.advance(outers))
+        m.updateTime()
+    return taken
+
+
+def tight_battery(b):
+    """The battery's JFNK inner solve at 1e-12 (early exit every 10)."""
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+
+    s = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                 relative_tolerance=1e-12, max_iterations=600)
+    s.exit_every = 10
+    b.options["linearSolver"] = s
+    b._drop_compiled()
+
+
+def battery_sensitivities(b, electrode):
+    """The tangent in sigma and the adjoint (in sigma) of the mean
+    electrode potential at the current state, and their duality gap."""
+    import torch
+
+    n = b.mesh.n_interior_cells
+    w = torch.zeros(n, dtype=b.mesh.dtype, device=b.mesh.device)
+    w[torch.as_tensor(np.nonzero(electrode)[0], device=b.mesh.device)] = \
+        1.0 / int(electrode.sum())
+    t0 = time.perf_counter()
+    tan = b.solve_tangent({"sigma": 1.0})
+    tan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = b.solve_adjoint(lambda u: torch.sum(u[:, 1] * w), ("sigma",))
+    adj_s = time.perf_counter() - t0
+    wn = w.cpu().numpy()
+    t_val = float(np.sum(tan[:, 1] * wn))
+    a_val = float(np.sum(g["sigma"]))
+    return {"tangent": tan.tolist(), "adjoint": g["sigma"].tolist(),
+            "duality": abs(t_val - a_val) / max(abs(t_val), 1e-300),
+            "t_val": t_val, "tan_s": tan_s, "adj_s": adj_s}
+
+
+def models_gates(device, parts=MODEL_PARTS):
+    """Phases 26-28's small cases on ``device``, as plain numbers;
+    "charging": the column stand-in over CHARGE_GATE_STEPS time steps;
+    "rest": the charge-transport model at TRANSPORT_GATE, k-epsilon over
+    the KE_GATE_N^2 cavity, the battery cell at BATTERY_GATE (the demo's
+    steps, the tangent and the adjoint)."""
+    from fvm_tpu_torch import cases
+
+    out, t0 = {}, time.perf_counter()
+
+    def took(what):
+        nonlocal t0
+        log("models", f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    if "charging" in parts:
+        m = cases.dielectric_column(CHARGE_GATE_N, device=device)
+        h = cases.charging_run(m, CHARGE_GATE_STEPS)
+        out["charging"] = {"history": h[:, 1:].tolist(),
+                           "charge": m.state["charge"].cpu().tolist()}
+        took(f"the column stand-in, {CHARGE_GATE_STEPS} steps")
+    if "rest" not in parts:
+        return out
+    m = transport_model(*TRANSPORT_GATE, device)
+    transport_steps(m, 4, 3)
+    out["transport"] = {"charge": m.getCharge().tolist(),
+                        "trapped": m.getTrappedCharge().tolist(),
+                        "potential": m.getPotential().tolist()}
+    took("the charge-transport gate")
+    flow, thermal = cases.coupled_cavity(KE_GATE_N, device=device,
+                                         dtype="float64")
+    for _ in range(KE_GATE_FLOW):
+        cases.coupled_step(flow, thermal)
+    ke = cases.ke_cavity(flow)
+    for _ in range(KE_STEPS):
+        ke.advance(KE_OUTERS)
+        ke.updateTime()
+    out["ke"] = {"k": ke.getK().tolist(), "eps": ke.getEpsilon().tolist(),
+                 "mu_w": ke.getWallViscosity("top").tolist()}
+    took("the k-epsilon gate")
+    b, el = cases.battery_cell(*BATTERY_GATE, device=device)
+    rows = cases.battery_steps(b, el, BATTERY_GATE_STEPS)
+    tight_battery(b)
+    sens = battery_sensitivities(b, el)
+    out["battery"] = {"phi": b.getPotential().tolist(),
+                      "c": b.getConcentration().tolist(),
+                      "dli": [r[3] for r in rows], "tangent": sens["tangent"],
+                      "adjoint": sens["adjoint"],
+                      "duality": sens["duality"], "tan_s": sens["tan_s"],
+                      "adj_s": sens["adj_s"], "t_val": sens["t_val"]}
+    took("the battery gate")
+    return out
+
+
+def peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def charging_phase(device, smi):
+    """26 (module docstring); returns the charging electrostatics' and the
+    charge-transport matrix's kernel rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    gpu = gates("models_gates", MODEL_PARTS, device)
+    rows = []
+    # ---- the charge-transport half of ElectricModel at card size
+    n = TRANSPORT_CARD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = transport_model(n, n, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    clock = SolveClock()
+    clock.wrap(m.options["chargeLinearSolver"], "solve_fn", "charge solve")
+    clock.wrap(m.options["electrostaticsLinearSolver"], "solve_fn",
+               "potential solve")
+    m._drop_compiled()
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    outers = transport_steps(m, TRANSPORT_STEPS, TRANSPORT_OUTERS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    charge_launches = {md: v for (sc, md), v in dk.dia_stencil.scoped.items()
+                       if sc == "charge solve"}
+    q, ct = m.getCharge(), m.getTrappedCharge()
+    log("charging", f"charge transport quad_2d({n}, {n}) float64 (injection,"
+        f" capture, Poole-Frenkel, trap-band tunneling; "
+        f"{m.params['tun_path'].shape[1]}-cell walks): set up {setup_s:.2f} "
+        f"s; {TRANSPORT_STEPS} steps of at most {TRANSPORT_OUTERS} outers "
+        f"({outers} outers) in {run_s:.2f} s ({1e3 * run_s / outers:.1f} ms "
+        f"per outer: "
+        f"{clock.line()}); free charge max {q.max():.6e}, trapped max "
+        f"{ct.max():.6e}; dia_stencil launches {scoped_launches()}; peak "
+        f"{peak_gib():.3f} GiB [{smi}]")
+    if not (np.isfinite(q).all() and np.isfinite(ct).all()
+            and ct.max() <= 1.0 + 1e-9 and charge_launches.get("residual")):
+        raise AssertionError("charging: the transport run is off or never "
+                             "launched the kernel")
+    rows += shape_rows(" (charge transport, f64)", "charge-transport fine "
+                       "level", m.mesh, charge_launches, device, "float64")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the column stand-in on the card (the gate's card side)
+    col = gpu["charging"]["history"]
+    log("charging", f"column stand-in hex_3d(1, 1, {CHARGE_GATE_N}) "
+        f"({cases.CHARGING_STANDIN}), {CHARGE_GATE_STEPS} of the reference script's "
+        f"{cases.CHARGING_STEPS} steps on the card: (avg trapped, avg band) "
+        + " ".join(f"({a:.9e}, {b:.9e})" for a, b in col))
+
+    # ---- the membrane at card size
+    nx, ny = CHARGE_MEMBRANE
+    nf, nE, lv = nx * ny, 801, 1000
+    log("charging", f"membrane hex_3d({nx}, {ny}, {CHARGE_GATE_N}): the "
+        f"coefficient program's (energy, face, level) float64 arrays are "
+        f"{nE * nf * lv * 8 / 2**30:.3f} GiB each, its (energy, cell, trap) "
+        f"ones {nE * nf * CHARGE_GATE_N * 2 * 8 / 2**30:.3f} GiB each")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mem = cases.charging_membrane(nx, ny, CHARGE_GATE_N, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    clock = SolveClock()
+    clock.wrap(mem, "_coeffs", "coefficients")
+    clock.wrap(mem, "_solve_potential", "potential")
+    clock.wrap(mem._solver, "solve_fn", "Newton solve")
+    pstats = []
+    psolve = mem._electric.options["electrostaticsLinearSolver"]
+    psolve.nMaxIterations = CHARGE_MEMBRANE_POTENTIAL_ITERS
+    psolve.exit_every = 10
+    inner = psolve.solve_fn
+
+    def kept(*a, **kw):
+        x, st = inner(*a, **kw)
+        pstats.append(st)
+        return x, st
+
+    psolve.solve_fn = kept
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    hist = cases.charging_run(mem, CHARGE_MEMBRANE_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trips = [int(s.iterations) for s in mem.solve_stats]
+    peak = peak_gib()
+    log("charging", f"membrane {mem._n_int} cells float64: set up "
+        f"{setup_s:.2f} s; {CHARGE_MEMBRANE_STEPS} steps in {run_s:.2f} s "
+        f"({run_s / CHARGE_MEMBRANE_STEPS:.2f} s per step: "
+        f"{clock.line()}); Krylov trips per Newton step (the last step) "
+        f"{trips}; peak {peak:.3f} GiB [{smi}]")
+    phi = mem._electric.getPotential().reshape(nx * ny, CHARGE_GATE_N)
+    log("charging", "membrane potential solves (iterations, residual / "
+        "first): " + ", ".join(f"{int(st.iterations)}, "
+                               f"{float(st.residual / st.residual0):.3e}"
+                               for st in pstats)
+        + f"; the columns' potentials differ by up to "
+        f"{float(np.abs(phi - phi[:1]).max() / np.abs(phi).max()):.3e} of "
+        f"the largest")
+    x = mem.state["charge"].cpu().numpy().reshape(nx * ny, CHARGE_GATE_N, -1)
+    log("charging", "the columns' charges differ by up to (traps, band) "
+        + ", ".join(f"{v:.3e}" for v in (
+            np.abs(x - x[:1]).max(axis=(0, 1))
+            / np.abs(x).max(axis=(0, 1)))[[0, -1]]))
+    # the history rows are taken before each step: the totals after the
+    # last one close it
+    rows_m = np.vstack([hist[:, 1:], [mem.calculateTotalCharges()]])
+    diff = column_diffs(rows_m,
+                        np.asarray(col)[: CHARGE_MEMBRANE_STEPS + 1])
+    log("charging", f"membrane (avg trapped, avg band) " + " ".join(
+        f"({a:.9e}, {b:.9e})" for a, b in rows_m)
+        + f": against the column's, max rel diff {diff[0]:.3e} (avg "
+        f"trapped), {diff[1]:.3e} (avg band) (tol {CHARGE_MEMBRANE_RTOL:g} "
+        f"each)")
+    if not max(diff) <= CHARGE_MEMBRANE_RTOL:
+        raise AssertionError("charging: the membrane's columns disagree "
+                             "with the column")
+    launches = dk.type_launches(torch.float64)
+    em = mem._electric
+    log("charging", "electrostatics dia_stencil launches by level: "
+        + level_launches(kb.level_shapes(
+            em.options["electrostaticsLinearSolver"].preconditioner,
+            em.mesh)))
+    if not launches["residual"]:
+        raise AssertionError("charging: the electrostatics never launched "
+                             "the kernel")
+    rows += shape_rows(" (charging electrostatics, f64)", "charging "
+                       "electrostatics fine level", em.mesh, launches, device,
+                       "float64")
+    del mem, em
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cpu = gates("models_gates", MODEL_PARTS, "cpu")
+    log("charging", f"waited {time.perf_counter() - t0:.1f} s for the CPU "
+        f"side")
+    check_gates("charging", gpu["charging"], cpu["charging"],
+                ("history", "charge"), columns=("history", "charge"))
+    check_gates("charging", gpu["transport"], cpu["transport"],
+                ("charge", "trapped", "potential"))
+    return rows
+
+
+def ke_phase(device, smi):
+    """27 (module docstring); returns the ke cavity's kernel rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops.gradients import gradient
+
+    gpu = gates("models_gates", MODEL_PARTS, device)
+    cpu = gates("models_gates", MODEL_PARTS, "cpu")
+    check_gates("ke", gpu["ke"], cpu["ke"], ("k", "eps", "mu_w"))
+
+    t0 = time.perf_counter()
+    flow, thermal = cases.coupled_cavity(MAIN_N, device=device,
+                                         dtype=MAIN_DTYPE)
+    for _ in range(WARMUP_STEPS):
+        cases.coupled_step(flow, thermal)
+    cases.coupled_steps(flow, thermal, KE_CARD_FLOW)
+    torch.cuda.synchronize()
+    log("ke", f"bench's {MAIN_N}^2 {MAIN_DTYPE} cavity after "
+        f"{WARMUP_STEPS} eager and {KE_CARD_FLOW} replayed coupled outers in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for label, chunk in (("eager", 0), ("replay", KE_OUTERS)):
+        ke = cases.ke_cavity(flow, {"outerChunk": chunk})
+        if label == "replay":  # the capture outside the timed steps
+            snap = {k: v.clone() for k, v in ke.state.items()}
+            ke.advance(KE_OUTERS)
+            ke.state = snap
+            ke._initial_norm = None
+        dk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = []
+        for _ in range(KE_STEPS):
+            hist += [h[1] for h in ke.advance(KE_OUTERS)]
+            ke.updateTime()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[label] = (ke.getK(), ke.getEpsilon(), hist, secs,
+                       dk.type_launches(torch.float32), ke)
+    outers = KE_STEPS * KE_OUTERS
+    ke = runs["eager"][5]
+    launches = runs["eager"][4]
+    log("ke", f"KeModel on the {MAIN_N}^2 cavity ({ke.mesh.n_cells} rows, "
+        f"Wall on the four walls, BiCGStab(Jacobi(3), 1e-8, 100) per "
+        f"equation): {KE_STEPS} steps of {KE_OUTERS} outers eager "
+        f"{1e3 * runs['eager'][3] / outers:.2f} ms per outer, as outerChunk "
+        f"{KE_OUTERS} graph replays {1e3 * runs['replay'][3] / outers:.2f} "
+        f"ms per outer; dia_stencil launches per outer " + ", ".join(
+            f"{md} {v / outers:g}" for md, v in launches.items())
+        + f"; residuals " + ", ".join(f"{r:.6e}" for r in runs["eager"][2])
+        + f" [{smi}]")
+    same = all(np.array_equal(a, b) for a, b in
+               zip(runs["eager"][:3], runs["replay"][:3]))
+    log("ke", f"replay against eager: k, eps and the residuals "
+        f"{'equal bit for bit' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("ke: the replay differs from the eager loop")
+    if not (launches["residual"] and np.isfinite(runs["eager"][0]).all()
+            and (runs["eager"][0] > 0).all()):
+        raise AssertionError("ke: no kernel launches or a bad k field")
+    # the least-squares gradients' share of an outer: one vector gradient
+    # (production) and two scalar ones (the k and eps equations)
+    coeff = ke.params["grad_coeff"]
+    V, k = ke.state["velocity"], ke.state["k"]
+    g_vec = time_events([lambda: gradient(ke.mesh, coeff, V)], 20)
+    g_sc = time_events([lambda: gradient(ke.mesh, coeff, k)], 20)
+    outer_ms = 1e3 * runs["replay"][3] / outers
+    log("ke", f"LS gradients: vector {g_vec:.3f} ms, scalar {g_sc:.3f} ms; "
+        f"{g_vec + 2 * g_sc:.3f} ms per outer, "
+        f"{100 * (g_vec + 2 * g_sc) / outer_ms:.1f}% of a replayed outer")
+    profile_run("ke", "one eager ke outer", lambda: ke.advance(1),
+                1e3 * runs["eager"][3] / outers, top=8)
+    mesh = ke.mesh
+    del runs, ke, flow, thermal
+    gc.collect()
+    rows = shape_rows(" (ke)", "ke fine level", mesh, launches, device,
+                      MAIN_DTYPE)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def battery_phase(device, smi):
+    """28 (module docstring); no kernel rows (matrix-free, no DIA)."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+    from fvm_tpu_torch.linear.base import product_mode
+
+    gpu = gates("models_gates", MODEL_PARTS, device)
+    cpu = gates("models_gates", MODEL_PARTS, "cpu")
+    check_gates("battery", gpu["battery"], cpu["battery"],
+                ("phi", "c", "dli", "tangent", "adjoint"))
+    log("battery", f"the demo's cell {BATTERY_GATE[0]} x {BATTERY_GATE[1]}: "
+        f"d(Li_electrode) cuda " + ", ".join(
+            f"{v:.9e}" for v in gpu["battery"]["dli"])
+        + f"; tangent in sigma {gpu['battery']['tan_s']:.2f} s, adjoint "
+        f"{gpu['battery']['adj_s']:.2f} s on the card (inner solves at "
+        f"1e-12), d(mean electrode phi) . dsigma "
+        f"{gpu['battery']['t_val']:.9e}; duality cuda "
+        f"{gpu['battery']['duality']:.3e} cpu {cpu['battery']['duality']:.3e}")
+    if not gpu["battery"]["duality"] <= GATE_RTOL:
+        raise AssertionError("battery: the adjoint and the tangent disagree")
+
+    # ---- the largest cell fvm_tpu converges, on the card
+    nx, ny = BATTERY_CARD
+    t0 = time.perf_counter()
+    b, el = cases.battery_cell(nx, ny, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = cases.battery_steps(b, el, BATTERY_CARD_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    newton = sum(r[0] for r in steps)
+    worst = max(abs(r[3] / r[4] - 1.0) for r in steps)
+    log("battery", f"cell quad_2d({nx}, {ny}) float64 "
+        f"({b.mesh.n_interior_cells} cells, products "
+        f"{product_mode(b._unknowns(b.state))}): set up {setup_s:.2f} s; "
+        f"{BATTERY_CARD_STEPS} time steps in {run_s:.2f} s "
+        f"({run_s / BATTERY_CARD_STEPS:.2f} s per step, {newton} Newton "
+        f"iterations, {run_s / newton:.3f} s each); per step (Newton its, "
+        f"last residual, terminal V, d(Li_electrode), -dt I/F): "
+        + "; ".join(f"{r[0]}, {r[1]:.3e}, {r[2]:.6f}, {r[3]:.9e}, "
+                    f"{r[4]:.9e}" for r in steps)
+        + f"; Li balance max rel err {worst:.3e} [{smi}]")
+    if not worst <= 1e-8:
+        raise AssertionError("battery: the Li balance is off")
+    # kernels and idle share of one Newton step with its trips capped
+    s = b.options["linearSolver"]
+    s.nMaxIterations = BATTERY_PROFILE_TRIPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.advance(1)
+    torch.cuda.synchronize()
+    profile_run("battery", f"one Newton step, {BATTERY_PROFILE_TRIPS} "
+                f"Krylov trips", lambda: b.advance(1),
+                1e3 * (time.perf_counter() - t0), top=8)
+    del b
+    gc.collect()
+
+    # ---- the capped card-size run
+    nx, ny = BATTERY_CAP
+    solver = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                      relative_tolerance=1e-8,
+                      max_iterations=BATTERY_CAP_TRIPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b, el = cases.battery_cell(nx, ny, device=device, solver=solver)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = b.advance(1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    log("battery", f"capped cell quad_2d({nx}, {ny}) float64 "
+        f"({b.mesh.n_interior_cells} cells, products "
+        f"{product_mode(b._unknowns(b.state))}): set up {setup_s:.2f} s; "
+        f"one Newton step of {BATTERY_CAP_TRIPS} Krylov trips in "
+        f"{step_s:.2f} s ({1e3 * step_s / BATTERY_CAP_TRIPS:.1f} ms per "
+        f"trip), entry residual {hist[0][1]:.6e}; peak {peak_gib():.3f} GiB "
+        f"[{smi}]")
+    if not np.isfinite(b.getPotential()).all():
+        raise AssertionError("battery: the capped run is not finite")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return []
 
 
 def describe(shapes):
@@ -3377,6 +3992,11 @@ def main() -> int:
     import torch
 
     t_start = time.time()
+    clock = {"t": t_start}
+
+    def done(label):
+        log("done", f"phase {label} in {time.time() - clock['t']:.1f} s")
+        clock["t"] = time.time()
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3404,6 +4024,8 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     print(smi, flush=True)
 
+    done("1")
+
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
     dk.build(verbose=True)
@@ -3414,6 +4036,8 @@ def main() -> int:
     hostlib.build()
     log("build", f"host aggregation helper built from {HOST_SOURCE} in "
         f"{time.time() - t0:.1f} s")
+
+    done("2")
 
     # ---- 3. kernel vs plain on the card -----------------------------------
     # the main path's case, one warm-up step to build its AMG hierarchies
@@ -3435,11 +4059,15 @@ def main() -> int:
     kernel_vs_plain("unaligned x/b views", 200_003, (-448, -1, 1, 448),
                     device, errors, nrhs=(1, 2, 3), views=True)
 
+    done("3")
+
     # ---- 4. slice on the card vs slice on the CPU --------------------------
     launches64, fine64 = slice_phase("slice", coupled_cavity, SLICE_N,
                                      f"{SLICE_N}^2", device)
     kernel_vs_plain(f"{SLICE_N}^2 slice fine level", fine64.rows,
                     fine64.offsets, device, errors, dtypes=("float64",))
+
+    done("4")
 
     # ---- 5. main path at full size ----------------------------------------
     log("main", f"{MAIN_N}^2 {MAIN_DTYPE} coupled cavity set up and first "
@@ -3461,6 +4089,8 @@ def main() -> int:
     del flow, thermal, snap
     gc.collect()
 
+    done("5")
+
     # ---- 6. kernel timing at the main path's shapes ------------------------
     # momentum BiCGStab mv on (n, 2); AMG residual and Jacobi on (n,)
     kernels = time_modes("", n_main, main_offsets,
@@ -3475,9 +4105,13 @@ def main() -> int:
                           (("mv", 2), ("residual", 1), ("jacobi", 1)),
                           launches64, errors, "float64")
 
+    done("6")
+
     # ---- 7. the 3D slice on the card vs on the CPU -------------------------
     slice_phase("slice3d", coupled_cavity_3d, SLICE3D_N, f"{SLICE3D_N}^3",
                 device, exact=deterministic)
+
+    done("7")
 
     # ---- 8. the 3D main path set up ----------------------------------------
     secs, mesh_parts, init_parts = {}, {}, {}
@@ -3535,12 +4169,16 @@ def main() -> int:
         raise AssertionError("pressure and thermal hierarchies differ")
     log("setup3d", f"the greedy hierarchy: {describe(shapes3)}")
 
+    done("8")
+
     # ---- 9. kernel vs plain at the 3D hierarchy's DIA levels --------------
     errors3 = {}
     for lvl, s in enumerate(shapes3):
         if s.offsets is not None:
             kernel_vs_plain(f"3D level {lvl}", s.rows, s.offsets, device,
                             errors3, nrhs=(1, 3), dia=s.dia)
+
+    done("9")
 
     # ---- 10. the 3D main path ---------------------------------------------
     for _ in range(WARMUP_STEPS - 1):
@@ -3566,6 +4204,8 @@ def main() -> int:
     del flow, thermal, dmesh, snap
     gc.collect()
 
+    done("10")
+
     # ---- 11. kernel timing at the 3D shapes -------------------------------
     # momentum BiCGStab mv on (n, 3); AMG residual and Jacobi on (n,)
     kernels += time_modes(" (3d)", shapes3[0].rows, shapes3[0].offsets,
@@ -3580,17 +4220,28 @@ def main() -> int:
                        (("residual", 1), ("jacobi", 1)), {}, errors3,
                        MAIN_DTYPE, rows=False)
 
+    done("11")
+
     # ---- 12. the cavity path's options -------------------------------------
+    start_early(early_cpu_sides("13"))
     options_phase(device)
     kernels += bf16_main_phase(device, n_main, main_offsets, errors)
+
+    done("12")
 
     # ---- 13. the Newton endgame, cuda against cpu ---------------------------
     newton_phase(device)
 
+    done("13")
+
     # ---- 14. time to a converged residual at 1024^2 -------------------------
+    start_early(early_cpu_sides("23-28"))
     kernels += converge_phase(device, kernels)
 
+    done("14")
+
     # ---- 15-17. bench.py --suite ------------------------------------------
+    start_early(early_cpu_sides("18-22"))
     suite, errors_suite = {}, {}
     homocase_phase(device, suite, smi)
     _, fine_ch = channel_phase(device, suite, errors_suite, smi)
@@ -3608,6 +4259,8 @@ def main() -> int:
         {m: suite.get((dk.type_tag(torch.float64), m), 0) for m in dk.MODES},
         errors_suite, "float64")
 
+    done("15-17")
+
     # ---- 18-20. the linear extras and the boundary physics ---------------
     t18 = time.time()
     kernels.extend(extras_phases(device, smi))
@@ -3621,7 +4274,12 @@ def main() -> int:
     # ---- 23-25. the structures and MEMS family ---------------------------
     t23 = time.time()
     kernels.extend(extras_phases(device, smi, (23, 24, 25)))
-    log("done", f"phases 23-25 in {time.time() - t23:.1f} s; phases 1-25 in "
+    log("done", f"phases 23-25 in {time.time() - t23:.1f} s")
+
+    # ---- 26-28. the remaining models -------------------------------------
+    t26 = time.time()
+    kernels.extend(extras_phases(device, smi, (26, 27, 28)))
+    log("done", f"phases 26-28 in {time.time() - t26:.1f} s; phases 1-28 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3630,7 +4288,7 @@ def main() -> int:
 
 
 def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
-    """Phases 18-25 (those in ``phases``), each timed; returns their
+    """Phases 18-28 (those in ``phases``), each timed; returns their
     ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
@@ -3642,7 +4300,10 @@ def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
                 device, cavity_state, smi))),
             (23, lambda: rows.extend(mems_phase(device, smi))),
             (24, lambda: rows.extend(struct_phase(device, smi))),
-            (25, lambda: rows.extend(motion_phase(device, smi)))):
+            (25, lambda: rows.extend(motion_phase(device, smi))),
+            (26, lambda: rows.extend(charging_phase(device, smi))),
+            (27, lambda: rows.extend(ke_phase(device, smi))),
+            (28, lambda: rows.extend(battery_phase(device, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

@@ -1188,3 +1188,139 @@ def fsi_beam(n: int = 24, device=None, iters: int = 3, flow_outers=120,
         rows.append({"p_mean": p_mean, "w_mean": float(wy.mean()),
                      "wall_offset": wall_offset, "vol_change": mm.volChange})
     return rows
+
+
+# ``dielectric_column`` / ``charging_membrane``: the reference's
+# DIALECTRIC_CHARGING case (testDielectricCharging.py on 1x1x1000.cas: a
+# 200 nm dielectric column under 100 V, driven by 100 steps of dt = 1e-9 x
+# 1.1^k with 3 relinearizations each).  1x1x1000.cas is not in the
+# repository: the column is a generated stand-in, hex_3d(1, 1, n) over
+# the same 200 nm with cubic cells, zmin the substrate (grounded) and zmax
+# the membrane electrode; every lateral group is Symmetry.
+
+CHARGING_THICKNESS = 200e-9
+CHARGING_STEPS = 100
+CHARGING_DT = 1e-9
+CHARGING_SCALE = 1.1
+CHARGING_ITERS = 3
+CHARGING_STANDIN = ("hex_3d(1, 1, n) stand-in for the absent "
+                    "1x1x1000.cas")
+
+
+def dielectric_column(n_cells: int = 1000, device=None, constants=None,
+                      space_charge="accumulate"):
+    """The charging column stand-in (``DielectricChargingModel`` on
+    hex_3d(1, 1, n_cells) over 200 nm), initialised."""
+    return charging_membrane(1, 1, n_cells, device, constants, space_charge)
+
+
+def charging_membrane(nx: int, ny: int, n_cells: int = 1000, device=None,
+                      constants=None, space_charge="accumulate"):
+    """The column repeated over an nx x ny membrane of columns
+    (hex_3d(nx, ny, n_cells), cubic cells): every column is the column's
+    case, so its average charges are the column's.  Initialised."""
+    from .models import DielectricChargingModel
+
+    h = CHARGING_THICKNESS / n_cells
+    mesh = hex_3d(nx, ny, n_cells, lx=nx * h, ly=ny * h,
+                  lz=CHARGING_THICKNESS)
+    m = DielectricChargingModel(mesh, "zmin", "zmax", constants=constants,
+                                space_charge=space_charge, device=device)
+    m.init()
+    return m
+
+
+def charging_run(m, steps: int = CHARGING_STEPS):
+    """The reference script's loop: ``steps`` BE steps from dt 1e-9,
+    growing by 1.1, 3 relinearizations each; the (steps, 3) history."""
+    return m.advance_transient(steps, CHARGING_DT, CHARGING_SCALE,
+                               iters_per_step=CHARGING_ITERS)
+
+
+# ``ke_cavity``: k-epsilon over bench's cavity flow, with the wall-function
+# case of tests/test_ke.py:80-115 (k0 0.1, eps0 0.3, viscosity 1e-4,
+# dt 0.01), a Wall on each of the four walls.
+
+KE_VC = {"initialK": 0.1, "initialE": 0.3, "viscosity": 1e-4}
+KE_DT = 0.01
+
+
+def ke_cavity(flow, options=None):
+    """A transient ``KeModel`` on ``flow``'s mesh, fed its velocity and
+    mass flux, initialised; ``options`` are set before ``init``."""
+    from .models import KeModel
+
+    ke = KeModel(flow.mesh, flow_model=flow)
+    ke.options["verbose"] = False
+    ke.options["transient"] = True
+    ke.options["timeStep"] = KE_DT
+    for k, v in KE_VC.items():
+        ke.vc[k] = v
+    for g in _WALLS[flow.mesh.dim][0]:
+        ke.bc[g].bc_type = "Wall"
+    for k, v in (options or {}).items():
+        ke.options[k] = v
+    ke.init()
+    ke.set_flow_state(velocity=flow.state["velocity"],
+                      mass_flux=flow.state["massFlux"])
+    return ke
+
+
+# ``battery_cell``: demos/battery_cell.py's Li-ion half cell (the
+# reference's BatteryModel scripts): electrolyte | cathode split at x = 1
+# by a double-shell interface, a constant current I = 5 drawn at the
+# electrode contact, BDF1 steps of dt = 20.
+
+BATTERY_I = 5.0
+BATTERY_DT = 20.0
+
+
+def battery_cell(nx: int = 32, ny: int = 4, device=None, dtype="float64",
+                 solver=None):
+    """The demo's transient half cell on quad_2d(nx, ny) over 2 x 1,
+    initialised (its main() at nx 32, ny 4); ``solver`` replaces the
+    default JFNK inner solve.  Returns (model, electrode cell mask)."""
+    from .models import BatteryModel
+
+    m = quad_2d(nx, ny, lx=2.0, ly=1.0)
+    elyte = compute_geometry(m).cell_centroid[: m.n_interior_cells, 0] < 1.0
+    m2 = m.make_interface("sep", m.interface_faces_between(elyte, ~elyte),
+                          left_cells=elyte)
+    b = BatteryModel(build_device_mesh(m2, dtype=dtype, device=device))
+    b.options["verbose"] = False
+    b.options["transient"] = True
+    b.options["timeStep"] = BATTERY_DT
+    xc = compute_geometry(m2).cell_centroid[: m2.n_interior_cells, 0]
+    b.set_material_regions(np.where(xc < 1.0, 1, 2))
+    b.vc["conductivity"] = (100.0, 1.0, 10.0)
+    b.vc["diffusivity"] = (1e-2, 1e-2, 1e-2)
+    b.bc["left"].bc_type = "SpecifiedPotential"
+    b.bc["left"]["specifiedPotential"] = 0.0
+    b.bc["right"].bc_type = "SpecifiedCurrent"
+    b.bc["right"]["specifiedCurrent"] = BATTERY_I
+    b.bc["top"].bc_type = "Symmetry"
+    b.bc["bottom"].bc_type = "Symmetry"
+    if solver is not None:
+        b.options["linearSolver"] = solver
+    b.init()
+    return b, ~(xc < 1.0)
+
+
+def battery_steps(b, electrode, steps: int, newton: int = 20):
+    """``steps`` of the demo's loop (``advance(newton)`` then
+    ``updateTime``); per step (Newton iterations, last residual, terminal
+    potential, d(Li in the electrode), the exact -dt I / F)."""
+    from .models import FARADAY
+
+    vol = 2.0 / b.mesh.n_interior_cells
+    c_prev = b.getConcentration()
+    rows = []
+    for _ in range(steps):
+        hist = b.advance(newton)
+        c_now = b.getConcentration()
+        rows.append((len(hist), hist[-1][1], float(b.getPotential().max()),
+                     float((c_now[electrode] - c_prev[electrode]).sum() * vol),
+                     -BATTERY_DT * BATTERY_I / FARADAY))
+        b.updateTime()
+        c_prev = c_now
+    return rows

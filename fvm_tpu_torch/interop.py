@@ -72,7 +72,17 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
     and its params (mu, lam, rho, body, grad_coeff); ``PlateModel``'s u
     (n, 3), its time levels and its params (D, S, nu, rho_h, the pressure
     load q, grad_coeff).  The bases the tangents chain-rule through and
-    the undegraded moduli stay those of the model's own VC."""
+    the undegraded moduli stay those of the model's own VC.
+
+    So do ``KeModel`` (k, eps, their time levels, the velocity and the
+    mass flux; params with the bool ``wall_mask``) and ``BatteryModel``
+    (c, phi and c_N1; params with the int ``mat``, the bool ``iface`` and
+    the 0-d kinetic constants, each kept in the model's own type), and
+    ``ElectricModel``'s transport state (charge, trapped and their time
+    levels).  ``DielectricChargingModel`` is no ``Model``: its state is
+    charge and chargeN1, (n_interior, nTrap + 1), and the accumulated
+    space charge ``_rho_acc`` (the JAX package's attribute of that name);
+    it has no params."""
     if not getattr(model, "_initialized", False):
         raise RuntimeError("load_model_state: call model.init() first")
     mesh = model.mesh

@@ -178,6 +178,48 @@ class MatrixFreeOperator:
         return x + omega * self.diag_solve(b - self.mv(x))
 
 
+class DiagonalSurrogate:
+    """A ``MatrixFreeOperator`` surrogate given by a diagonal alone (the
+    unknowns' shape): the reductions over all entries and the Jacobi
+    diagonal solve, for residuals assembled without a matrix."""
+
+    def __init__(self, diag):
+        self.diag = diag
+
+    def dot(self, a, b):
+        return torch.sum(a * b)
+
+    def norm(self, x):
+        return torch.sqrt(torch.sum(x * x))
+
+    def diag_solve(self, r):
+        return r / self.diag
+
+
+# trips between the early-exit read-backs of the default JFNK solvers'
+# eager loops (``linear/krylov._all_frozen``: the same result)
+JFNK_EXIT_EVERY = 10
+
+
+# the JFNK models replay the product from a CUDA graph up to this many cells
+# (there an eager product is launch-bound); above it the reverse-mode
+# product is faster: NVIDIA H100 80GB HBM3, 700.00 W, the 630,784-cell
+# cantilever, 18.6 ms reverse against 45.2 ms graph (chip_smoke.py phase
+# 24)
+GRAPH_PRODUCT_MAX_CELLS = 1 << 17
+
+
+def product_mode(x) -> str:
+    """The ``newton_operator`` mode of the JFNK models' Jacobian products
+    for unknowns ``x``: "graph" (torch.func.jvp replayed from a CUDA graph
+    captured once per outer) on a CUDA mesh of up to
+    GRAPH_PRODUCT_MAX_CELLS cells, where an eager product is
+    launch-bound; else "reverse" (the backward pass of the residual's
+    reverse-mode product, built once per outer)."""
+    small = x.shape[0] <= GRAPH_PRODUCT_MAX_CELLS
+    return "graph" if x.is_cuda and small else "reverse"
+
+
 def newton_operator(residual_fn, x, mode: str = "forward"):
     """A v = -dR/dx|_x . v, linearised at x.
 

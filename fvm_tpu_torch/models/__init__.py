@@ -15,3 +15,6 @@ from .shocktube import ShockTube
 from .onedconduction import OneDConduction
 from .motion import MovingMeshModel, StructureDeformationModel
 from .contact import ContactModel, ContactVC
+from .ke import KeModel, KeBC, KeVC, KeModelOptions
+from .battery import BatteryModel, BatteryBC, BatteryVC, BatteryModelOptions, FARADAY, species_interface_flux
+from .charging import DielectricChargingModel, DielectricChargingConstants, fermi, electron_supply

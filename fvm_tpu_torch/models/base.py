@@ -414,6 +414,40 @@ class ResidualHistory(list):
     '<n>: <residual>' lines (ThermalModel_impl.h:443)."""
 
 
+def single_device_model(name: str, partition) -> None:
+    """Raise for a partitioned mesh: the models' distributed branches are
+    not ported yet."""
+    if partition is not None:
+        raise ConfigError(
+            f"{name}: a partitioned mesh (the distributed branch) is not "
+            "ported yet (ROADMAP queue 1 item 8)")
+
+
+def newton_advance(model, niter: int) -> ResidualHistory:
+    """The JFNK models' outer loop (the reference's advance loops): one
+    step per iteration with the absolute and relative tests on the
+    residual norm against the first one."""
+    opts = model.options
+    hist = ResidualHistory()
+    bcvals = model._resolve_bcvals()
+    for it in range(niter):
+        with model._phase("step"):
+            model.state, aux = model._step(model.mesh, model.params,
+                                           model.state, bcvals)
+        rnorm = float(aux["rnorm"])
+        model._guard_residual(rnorm, it)
+        if model._initial_norm is None or model._initial_norm == 0.0:
+            model._initial_norm = rnorm
+        hist.append((it, rnorm))
+        model._log_iteration(f"{model.name}: {it}: {rnorm:.6e}")
+        if rnorm < opts["absoluteTolerance"]:
+            break
+        if rnorm / max(model._initial_norm, 1e-300) < opts[
+                "relativeTolerance"]:
+            break
+    return hist
+
+
 def freeze(active, new: dict, old: dict) -> dict:
     """The frozen form's state update: ``new`` where ``active`` (a 0-d
     bool tensor), else ``old``, entry by entry."""

@@ -13,9 +13,8 @@ StructureModel's strain energy).
 from __future__ import annotations
 
 from ..core.options import BoundaryCondition, ModelOptions
-from .base import as_tensor_like
+from .base import as_tensor_like, single_device_model
 from .scalar_generic import GenericScalarModel
-from .structure import single_device_model
 
 
 class FractureBC(BoundaryCondition):

@@ -29,14 +29,15 @@ from ..core import bcs as bck
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError
 from ..linear import BiCGStab, JacobiSolver
-from ..linear.base import MatrixFreeOperator, newton_operator
+from ..linear.base import (JFNK_EXIT_EVERY, MatrixFreeOperator,
+                           newton_operator, product_mode)
 from ..ops import assembly, discretizations as disc
 from ..ops.bell import (assemble_block, dirichlet_rows_block,
                         residual_block, small_inv, transform_rows_block)
 from ..ops.gradients import gradient, ls_gradient_coefficients
-from .base import Model, ResidualHistory
-from .structure import (JFNK_EXIT_EVERY, bmv, newton_advance,
-                        product_mode, single_device_model, trace)
+from .base import (Model, ResidualHistory, newton_advance,
+                   single_device_model)
+from .structure import bmv, trace
 
 
 class PlateBC(BoundaryCondition):

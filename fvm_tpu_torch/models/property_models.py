@@ -15,8 +15,7 @@ import numpy as np
 import torch
 
 from ..core.options import BoundaryCondition
-from .base import Model
-from .structure import single_device_model
+from .base import Model, single_device_model
 
 STEFAN_BOLTZMANN = 5.670374419e-8
 R_UNIVERSAL = 8314.0  # J/(kmol K): the reference's Rgas = 8314 / molWt

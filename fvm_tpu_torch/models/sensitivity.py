@@ -104,7 +104,7 @@ class PCExpansion:
 
 
 def jfnk_adjoint(model, var, system, functional, param_keys, bc_keys,
-                 chain=None):
+                 chain=None, w=None):
     """Reverse-mode adjoint of a model given by a residual function
     (``fvm_tpu/models/sensitivity.py:82-212``).
 
@@ -117,7 +117,9 @@ def jfnk_adjoint(model, var, system, functional, param_keys, bc_keys,
     and the preconditioner); ``chain`` = (inputs, props_fn) maps design
     variables through a property closure (props_fn(inputs) -> a params
     sub-dict); requested keys found in ``inputs`` are chain-ruled.
-    Returns {key: (n_interior, ...) gradient} as numpy, BC keys per face.
+    ``w``: the unknowns to linearize at, when they are not ``state[var]``
+    (the battery's stacked (c, phi)).  Returns {key: (n_interior, ...)
+    gradient} as numpy (a float for a 0-d parameter), BC keys per face.
     """
     if not model._initialized:
         raise ConfigError("call init() + advance() before solve_adjoint")
@@ -143,7 +145,7 @@ def jfnk_adjoint(model, var, system, functional, param_keys, bc_keys,
             raise ConfigError(
                 f"{model.name}.solve_adjoint: unknown BC entry {k!r}")
 
-    w = state[var].detach()
+    w = (state[var] if w is None else w).detach()
     with torch.enable_grad():
         wv = w.clone().requires_grad_(True)
         A, R = system(mesh, params, state, bcvals, wv)
@@ -174,7 +176,8 @@ def jfnk_adjoint(model, var, system, functional, param_keys, bc_keys,
     gp = dict(zip(base_p, grads[: len(base_p)]))
     gb = dict(zip(base_b, grads[len(base_p):]))
 
-    out = {k: _numpy(bck.fold_ghosts(mesh, gp[k])) for k in direct}
+    out = {k: float(gp[k]) if gp[k].ndim == 0 else
+           _numpy(bck.fold_ghosts(mesh, gp[k])) for k in direct}
     if chain_keys:
         with torch.enable_grad():
             ins = {k: as_tensor_like(v, w).requires_grad_(True)

@@ -21,9 +21,8 @@ import torch
 
 from ..core import bcs as bck
 from ..core.options import BoundaryCondition, ModelOptions
-from .base import as_tensor_like
+from .base import as_tensor_like, single_device_model
 from .scalar_generic import GenericScalarModel
-from .structure import single_device_model
 
 
 class SqueezeFilmBC(BoundaryCondition):

@@ -37,45 +37,14 @@ from ..core import bcs as bck
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError
 from ..linear import BiCGStab, JacobiSolver
-from ..linear.base import MatrixFreeOperator, newton_operator
+from ..linear.base import (JFNK_EXIT_EVERY, MatrixFreeOperator,
+                           newton_operator, product_mode)
 from ..ops import assembly, discretizations as disc
 from ..ops.bell import (assemble_block, dirichlet_rows_block,
                         residual_block, transform_rows_block)
 from ..ops.gradients import gradient, ls_gradient_coefficients
-from .base import Model, ResidualHistory
-
-# trips between the early-exit read-backs of the default JFNK solvers'
-# eager loops (``linear/krylov._all_frozen``: the same result)
-JFNK_EXIT_EVERY = 10
-
-
-def single_device_model(name: str, partition) -> None:
-    """Raise for a partitioned mesh: the distributed branches of the
-    structures family are not ported yet."""
-    if partition is not None:
-        raise ConfigError(
-            f"{name}: a partitioned mesh (the distributed branch) is not "
-            "ported yet (ROADMAP queue 1 item 8)")
-
-
-# "auto" replays the product from a CUDA graph up to this many cells
-# (there an eager product is launch-bound); above it the reverse-mode
-# product is faster: NVIDIA H100 80GB HBM3, 700.00 W, the 630,784-cell
-# cantilever, 18.6 ms reverse against 45.2 ms graph (chip_smoke.py phase
-# 24)
-GRAPH_PRODUCT_MAX_CELLS = 1 << 17
-
-
-def product_mode(x) -> str:
-    """The ``newton_operator`` mode of the JFNK models' Jacobian products
-    for unknowns ``x``: "graph" (torch.func.jvp replayed from a CUDA graph
-    captured once per outer) on a CUDA mesh of up to
-    GRAPH_PRODUCT_MAX_CELLS cells, where an eager product is
-    launch-bound; else "reverse" (the backward pass of the residual's
-    reverse-mode product, built once per outer)."""
-    small = x.shape[0] <= GRAPH_PRODUCT_MAX_CELLS
-    return "graph" if x.is_cuda and small else "reverse"
-
+from .base import (Model, ResidualHistory, newton_advance,
+                   single_device_model)
 
 def trace(G):
     """tr over the last two axes."""
@@ -550,28 +519,3 @@ class StructureModel(Model):
         if ep is None:
             raise ConfigError("StructureModel: creep option is off")
         return self._interior(ep)
-
-
-def newton_advance(model, niter: int) -> ResidualHistory:
-    """The JFNK models' outer loop (the reference's advance loops): one
-    step per iteration with the absolute and relative tests on the
-    residual norm against the first one."""
-    opts = model.options
-    hist = ResidualHistory()
-    bcvals = model._resolve_bcvals()
-    for it in range(niter):
-        with model._phase("step"):
-            model.state, aux = model._step(model.mesh, model.params,
-                                           model.state, bcvals)
-        rnorm = float(aux["rnorm"])
-        model._guard_residual(rnorm, it)
-        if model._initial_norm is None or model._initial_norm == 0.0:
-            model._initial_norm = rnorm
-        hist.append((it, rnorm))
-        model._log_iteration(f"{model.name}: {it}: {rnorm:.6e}")
-        if rnorm < opts["absoluteTolerance"]:
-            break
-        if rnorm / max(model._initial_norm, 1e-300) < opts[
-                "relativeTolerance"]:
-            break
-    return hist

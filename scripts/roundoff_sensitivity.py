@@ -1,7 +1,8 @@
 """How far the JAX package's own residual histories move under round-off.
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
-        ib,channel,homocase,electric,goldens,structures]
+        ib,channel,homocase,electric,goldens,structures,transport,ke,
+        battery,charging]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -45,6 +46,20 @@ all by default):
   and the MEMS switch of ``tests/test_mems.py`` (nx 24, ny_gap 12, the
   Young's modulus scaled): the lumped stiffness and w_max at 0.3 and 0.6
   V_PI.
+* ``transport``: the charge-transport cases of
+  ``tests/test_electric_species.py:60-295`` (drift, injection with traps,
+  trap-band tunneling, Poole-Frenkel at 100 V), the right (or left) wall
+  potential scaled: the charge and the traps after their time steps;
+* ``ke``: the three cases of ``tests/test_ke.py``, the initial k scaled:
+  k and eps after their time steps;
+* ``battery``: the cells of ``tests/test_battery.py`` (the sandwich at 3.75
+  V, steady and transient; the double-shell cell, steady and transient),
+  the applied potential or current scaled, with the default inner solve
+  and with one at 1e-12: the histories' length, their entries and the
+  final unknowns;
+* ``charging``: the dielectric column stand-in of ``DielectricCharging
+  Model`` (``hex_3d(1, 1, 150)``, 200 nm, 5 steps of the reference script's loop),
+  the membrane voltage scaled: the (time, trapped, band) history.
 
 A port held against these histories cannot be held tighter than this
 spread; the port's parity tests run the Newton and Poiseuille
@@ -226,6 +241,14 @@ def main() -> int:
         _goldens(jfvm, JFlow, spread)
     if "structures" in cases:
         _structures(jfvm, spread)
+    if "battery" in cases:
+        _battery(jfvm, spread)
+    if "transport" in cases:
+        _transport(jfvm)
+    if "ke" in cases:
+        _ke(jfvm)
+    if "charging" in cases:
+        _charging()
     if "newton" not in cases:
         if "poiseuille" in cases:
             _poiseuille(JFlow, jfvm, spread)
@@ -403,6 +426,220 @@ def _structures(jfvm, spread):
     print(f"MEMS switch nx 24: k, w_max(0.3 V_PI), w_max(0.6 V_PI) "
           f"{rows[0]} / {rows[1]}; max rel difference "
           f"{spread(rows[0], rows[1]):.3e}", flush=True)
+
+
+def _rel(a, b):
+    """max |a - b| over max |a| (0 where both are 0)."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+
+
+def _transport(jfvm):
+    """The ``transport`` case (module docstring)."""
+    import jax.numpy as jnp
+    from fvm_tpu.models.electric import EPS0, ElectricModel
+
+    cases = {
+        "drift": ((16, 4), 1.0, {"timeStep": 1e-2},
+                  {"initialCharge": 1e-12, "mobility": 1.0,
+                   "diffusivity": 1e-3}, (10.0, 0.0), 3, 3),
+        "injection": ((12, 4), 1.0, {"timeStep": 0.1,
+                                     "injection_enable": True,
+                                     "trapping_enable": True},
+                      {"dielectric_constant": 1.0 / EPS0,
+                       "initialCharge": 1e-15, "mobility": 1e-3,
+                       "diffusivity": 1e-4, "injectionA": 1e-5,
+                       "injectionB": 5.0, "trapDensity": 1.0,
+                       "captureCoefficient": 0.5,
+                       "emissionCoefficient": 0.01}, (50.0, 0.0), 5, 3),
+        "trap-band tunneling": (
+            (40, 2), 0.05, {"timeStep": 0.01, "trapping_enable": True,
+                            "trapbandtunneling_enable": True},
+            {"dielectric_constant": 1.0 / EPS0, "mobility": 0.0,
+             "diffusivity": 1e-6, "trapDensity": 1.0, "trapDepth": 2.0,
+             "wkbFactor": -3.0, "tunnelingRateScale": 1.0}, (0.0, 10.0), 5,
+            2),
+        "Poole-Frenkel 100 V": (
+            (12, 4), 1.0, {"timeStep": 0.02, "trapping_enable": True,
+                           "poole_frenkel_enable": True},
+            {"dielectric_constant": 1.0 / EPS0, "initialTrappedCharge": 1.0,
+             "mobility": 1e-6, "diffusivity": 1e-6, "trapDensity": 1.0,
+             "emissionCoefficient": 0.01, "emissionFrequency": 1.0,
+             "trapDepth": 1.5, "pfBeta": 0.15, "thermalVoltage": 0.5},
+            (100.0, 0.0), 10, 3),
+    }
+    for name, (shape, ly, opts, vc, bias, steps, inner) in cases.items():
+        out = []
+        for eps in (0.0, 1e-15):
+            dm = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(
+                *shape, ly=ly))
+            m = ElectricModel(dm)
+            m.options["verbose"] = False
+            m.options["chargetransport_enable"] = True
+            m.options["transient"] = True
+            for k, v in opts.items():
+                m.options[k] = v
+            for k, v in vc.items():
+                m.vc[k] = v
+            for g, V in zip(("left", "right"), bias):
+                m.bc[g].bc_type = "SpecifiedPotential"
+                m.bc[g]["specifiedPotential"] = V * (1 + eps)
+            m.bc["bottom"].bc_type = "Symmetry"
+            m.bc["top"].bc_type = "Symmetry"
+            m.init()
+            if name == "trap-band tunneling":
+                x = np.asarray(dm.cell_centroid)[: dm.n_interior_cells, 0]
+                full = np.zeros(dm.n_cells)
+                full[: len(x)] = np.where(x < 0.3, 0.5, 0.0)
+                m.state["trapped"] = m.state["trapped_N1"] = jnp.asarray(full)
+            for _ in range(steps):
+                m.advance(inner)
+                m.updateTime()
+            out.append((m.getCharge(), m.getTrappedCharge()))
+        (c0, t0), (c1, t1) = out
+        print(f"charge transport, {name}: charge max rel difference "
+              f"{_rel(c0, c1):.3e}, traps {_rel(t0, t1):.3e}", flush=True)
+
+
+def _ke(jfvm):
+    """The ``ke`` case (module docstring)."""
+    import jax.numpy as jnp
+    from fvm_tpu.models.ke import KeModel
+
+    sym = {g: ("Symmetry", {}) for g in ("left", "right", "bottom", "top")}
+    wall = {"bottom": ("Wall", {}),
+            "top": ("SpecifiedKE", {"specifiedK": 0.1, "specifiedE": 0.3}),
+            "left": ("Symmetry", {}), "right": ("Symmetry", {})}
+    cases = {"decay": ((4, 4), 0.002, 1.0, 2.0, sym, {}, 0.0, 50, 4),
+             "shear": ((4, 4), 0.002, 1.0, 2.0, sym, {}, 1.0, 20, 3),
+             "wall functions": ((4, 16), 0.01, 0.1, 0.3, wall,
+                                {"viscosity": 1e-4}, 2.0, 10, 3)}
+    for name, (shape, dt, k0, e0, bcs, vc, shear, steps, inner) in \
+            cases.items():
+        out = []
+        for eps in (0.0, 1e-15):
+            dm = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(
+                *shape))
+            m = KeModel(dm)
+            m.options["verbose"] = False
+            m.options["transient"] = True
+            m.options["timeStep"] = dt
+            m.vc["initialK"] = k0 * (1 + eps)
+            m.vc["initialE"] = e0
+            for k, v in vc.items():
+                m.vc[k] = v
+            for g, (t, vals) in bcs.items():
+                m.bc[g].bc_type = t
+                for k, v in vals.items():
+                    m.bc[g][k] = v
+            m.init()
+            if shear:
+                cc = dm.cell_centroid
+                m.set_flow_state(velocity=jnp.stack(
+                    [shear * cc[:, 1], jnp.zeros(dm.n_cells)], axis=1))
+            for _ in range(steps):
+                m.advance(inner)
+                m.updateTime()
+            out.append((m.getK(), m.getEpsilon()))
+        (k_0, e_0), (k_1, e_1) = out
+        print(f"k-epsilon, {name}: k max rel difference {_rel(k_0, k_1):.3e},"
+              f" eps {_rel(e_0, e_1):.3e}", flush=True)
+
+
+def _charging():
+    """The ``charging`` case (module docstring)."""
+    from fvm_tpu.mesh.generate import hex_3d
+    from fvm_tpu.models.charging import (DielectricChargingConstants,
+                                         DielectricChargingModel)
+
+    n, steps = 150, 5
+    hs = []
+    for eps in (0.0, 1e-15):
+        h = 200e-9 / n
+        m = DielectricChargingModel(
+            hex_3d(1, 1, n, lx=h, ly=h, lz=200e-9), "zmin", "zmax",
+            constants=DielectricChargingConstants(
+                membrane_voltage=100.0 * (1 + eps)))
+        m.init()
+        hs.append(m.advance_transient(steps, 1e-9, 1.1))
+    print(f"dielectric column hex_3d(1, 1, {n}), {steps} time steps: "
+          f"(avg trapped, avg band) max rel difference "
+          f"{_rel(hs[0][:, 1], hs[1][:, 1]):.3e}, "
+          f"{_rel(hs[0][:, 2], hs[1][:, 2]):.3e}", flush=True)
+
+
+def _battery(jfvm, spread):
+    """The ``battery`` case (module docstring)."""
+    from fvm_tpu.linear import BiCGStab, JacobiSolver
+    from fvm_tpu.mesh.metrics import compute_geometry
+    from fvm_tpu.models.battery import BatteryModel
+
+    def sandwich(eps, transient):
+        dm = jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(30, 2))
+        m = BatteryModel(dm)
+        m.options["verbose"] = False
+        if transient:
+            m.options["transient"] = True
+            m.options["timeStep"] = 5.0
+        x = np.asarray(dm.cell_centroid)[: dm.n_interior_cells, 0]
+        m.set_material_regions(np.where(x < 1 / 3, 0,
+                                        np.where(x < 2 / 3, 1, 2)))
+        m.bc["left"].bc_type = "SpecifiedPotential"
+        m.bc["left"]["specifiedPotential"] = 0.0
+        m.bc["right"].bc_type = "SpecifiedPotential"
+        m.bc["right"]["specifiedPotential"] = 3.75 * (1 + eps)
+        m.bc["bottom"].bc_type = "Symmetry"
+        m.bc["top"].bc_type = "Symmetry"
+        return m
+
+    def shell(eps, transient):
+        m = jfvm.mesh.generate.quad_2d(16, 4, lx=2.0, ly=1.0)
+        left = compute_geometry(m).cell_centroid[: m.n_interior_cells, 0] \
+            < 1.0
+        m2 = m.make_interface("sep", m.interface_faces_between(left, ~left),
+                              left_cells=left)
+        b = BatteryModel(jfvm.mesh.build_device_mesh(m2))
+        b.options["verbose"] = False
+        if transient:
+            b.options["transient"] = True
+            b.options["timeStep"] = 20.0
+        xc = compute_geometry(m2).cell_centroid[: m2.n_interior_cells, 0]
+        b.set_material_regions(np.where(xc < 1.0, 1, 2))
+        b.vc["conductivity"] = (100.0, 1.0, 10.0)
+        b.vc["diffusivity"] = (1e-2, 1e-2, 1e-2)
+        b.bc["left"].bc_type = "SpecifiedPotential"
+        b.bc["left"]["specifiedPotential"] = 0.0
+        b.bc["right"].bc_type = "SpecifiedCurrent"
+        b.bc["right"]["specifiedCurrent"] = 5.0 * (1 + eps)
+        b.bc["top"].bc_type = "Symmetry"
+        b.bc["bottom"].bc_type = "Symmetry"
+        return b
+
+    for name, make, niter in (("sandwich", sandwich, 25),
+                              ("double shell", shell, 25)):
+        for transient in (False, True):
+            for tight in (False, True):
+                runs = []
+                for eps in (0.0, 1e-15):
+                    m = make(eps, transient)
+                    if tight:
+                        m.options["linearSolver"] = BiCGStab(
+                            preconditioner=JacobiSolver(sweeps=3),
+                            relative_tolerance=1e-12, max_iterations=600)
+                    m.init()
+                    h = [r[1] for r in m.advance(niter)]
+                    u = np.concatenate([m.getPotential(),
+                                        m.getConcentration()])
+                    runs.append((h, u))
+                (h0, u0), (h1, u1) = runs
+                n = min(len(h0), len(h1))
+                print(f"battery {name}, "
+                      f"{'transient' if transient else 'steady'}, "
+                      f"{'inner 1e-12' if tight else 'default inner'}: "
+                      f"outers {len(h0)}/{len(h1)}, history max rel "
+                      f"difference {spread(h0[:n], h1[:n]):.3e}; unknowns "
+                      f"{float(np.abs(u0 - u1).max() / np.abs(u0).max()):.3e}",
+                      flush=True)
 
 
 if __name__ == "__main__":

@@ -216,13 +216,17 @@ def test_chunked_advance_and_loaded_state():
 
 
 def test_charge_transport_raises():
-    m = TElectric(build_device_mesh(tgen.quad_2d(4, 4), dtype="float64",
-                                    device="cpu"))
+    """Charge transport is ported (``tests/test_torch_charge_transport.
+    py``); what still raises is its distributed branch, a partitioned
+    mesh (ROADMAP queue 1 item 8)."""
+    dm = build_device_mesh(tgen.quad_2d(4, 4), dtype="float64", device="cpu")
+    m = TElectric(dm)
     for g in LATERAL:
         m.bc[g].bc_type = "Symmetry"
     m.options["chargetransport_enable"] = True
-    with pytest.raises(ConfigError, match="item 6"):
-        m.init()
+    m.init()
+    with pytest.raises(ConfigError, match="item 8"):
+        TElectric(dm, partition=object())
 
 
 def test_bench_solve_on_the_reference_size_standin():

@@ -988,6 +988,12 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
+def _rel_cols(a, b):
+    """``_rel`` of each last-axis column on its own scale, the largest."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return max(_rel(a[..., j], b[..., j]) for j in range(b.shape[-1]))
+
+
 @pytest.mark.parametrize("mode", ["graph", "reverse", "forward"])
 def test_structure_cuda_matches_cpu(cuda, mode):
     """The cantilever (JFNK, each ``newton_operator`` mode on the card, the
@@ -1099,3 +1105,125 @@ def test_motion_cuda_matches_cpu(cuda):
 
     for a, b in zip(*_both(run)):
         assert _rel(a, b) <= 1e-12
+
+
+def test_charge_transport_cuda_matches_cpu(cuda):
+    """ElectricModel's charge transport (injection, capture, Poole-Frenkel
+    emission and trap-band tunneling, transient) on the card against the
+    CPU; the charge solve's sweeps launch ``dia_stencil``."""
+    from fvm_tpu_torch.models import ElectricModel
+
+    def run(dev):
+        # 64 x 16: a mesh with DIA structure (24 x 4 has none)
+        m = ElectricModel(build_device_mesh(quad_2d(64, 16, ly=0.25),
+                                            dtype="float64", device=dev))
+        m.options["verbose"] = False
+        for k in ("chargetransport_enable", "injection_enable",
+                  "trapping_enable", "poole_frenkel_enable",
+                  "trapbandtunneling_enable", "transient"):
+            m.options[k] = True
+        m.options["timeStep"] = 0.05
+        for k, v in {"dielectric_constant": 1.0 / 8.8542e-12,
+                     "initialCharge": 1e-6, "mobility": 1e-3,
+                     "diffusivity": 1e-4, "injectionA": 1e-5,
+                     "injectionB": 5.0, "trapDensity": 1.0,
+                     "captureCoefficient": 0.5, "emissionCoefficient": 0.01,
+                     "emissionFrequency": 1.0, "pfBeta": 0.15,
+                     "thermalVoltage": 0.5, "trapDepth": 2.0,
+                     "wkbFactor": -3.0, "tunnelingRateScale": 1.0}.items():
+            m.vc[k] = v
+        for g, V in (("left", 0.0), ("right", 10.0)):
+            m.bc[g].bc_type = "SpecifiedPotential"
+            m.bc[g]["specifiedPotential"] = V
+        m.bc["bottom"].bc_type = m.bc["top"].bc_type = "Symmetry"
+        m.init()
+        dk.reset_launches()
+        for _ in range(4):
+            m.advance(3)
+            m.updateTime()
+        return (m.getCharge(), m.getTrappedCharge(), m.getPotential(),
+                dk.type_launches(torch.float64))
+
+    (cg, tg, pg, lg), (cc, tc, pc, _) = _both(run)
+    assert lg["residual"] > 0 and lg["mv"] > 0
+    for a, b in ((cg, cc), (tg, tc), (pg, pc)):
+        assert _rel(a, b) <= 1e-8
+
+
+def test_charging_cuda_matches_cpu(cuda):
+    """The charging column stand-in and a 2 x 2 membrane of it: the
+    coefficient arrays, three time steps' history and the charge (the
+    history's and the charge's columns each on its own scale: the band
+    charge is many orders below the trapped)."""
+    from fvm_tpu_torch.cases import (charging_membrane, charging_run,
+                                     dielectric_column)
+
+    def run(dev):
+        m = dielectric_column(60, device=dev)
+        phi, E = m._solve_potential()
+        k = m._coeffs(phi, E)
+        m.state["_rho_acc"].zero_()
+        h = charging_run(m, 3)
+        mem = charging_membrane(2, 2, 60, device=dev)
+        hm = charging_run(mem, 3)
+        return ([k[key].cpu().numpy() for key in sorted(k)], h,
+                m.state["charge"].cpu().numpy(), hm)
+
+    (kg, hg, xg, mg), (kc, hc, xc, mc) = _both(run)
+    for a, b in zip(kg, kc):
+        assert _rel(a, b) <= 1e-12
+    assert _rel_cols(hg, hc) <= 1e-8 and _rel_cols(xg, xc) <= 1e-8
+    assert _rel_cols(mg, hg) <= 1e-10
+
+
+def test_ke_cuda_matches_cpu_and_replay_equals_eager(cuda):
+    """KeModel over the 16^2 cavity's flow: cuda against cpu, the
+    ``outerChunk`` graph replay against the eager loop bit for bit, and its
+    solves through ``dia_stencil``."""
+    from fvm_tpu_torch.cases import ke_cavity
+
+    def run(dev, chunk=0):
+        flow, thermal = coupled_cavity(16, device=dev, dtype="float64")
+        for _ in range(20):
+            coupled_step(flow, thermal)
+        ke = ke_cavity(flow, {"outerChunk": chunk})
+        dk.reset_launches()
+        for _ in range(3):
+            ke.advance(4)
+            ke.updateTime()
+        return ke.getK(), ke.getEpsilon(), dk.type_launches(torch.float64)
+
+    (kg, eg, lg), (kc, ec, _) = _both(run)
+    assert lg["residual"] > 0 and lg["mv"] > 0
+    assert _rel(kg, kc) <= 1e-8 and _rel(eg, ec) <= 1e-8
+    kr, er, _ = run(torch.device("cuda", 0), chunk=2)
+    assert np.array_equal(kr, kg) and np.array_equal(er, eg)
+
+
+@pytest.mark.parametrize("mode", ["graph", "reverse"])
+def test_battery_cuda_matches_cpu(cuda, mode):
+    """The demo's half cell (nx 16): two time steps, the Li balance, the
+    tangent in sigma and the adjoint of the mean electrode potential, each
+    Jacobian-product mode on the card."""
+    from fvm_tpu_torch.cases import battery_cell, battery_steps
+    from fvm_tpu_torch.linear import BiCGStab, JacobiSolver
+
+    def run(dev):
+        s = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                     relative_tolerance=1e-12, max_iterations=600)
+        s.exit_every = 10
+        b, el = battery_cell(16, 4, device=dev, solver=s)
+        if dev.type == "cuda":
+            op = b._newton_op
+            b._newton_op = lambda *a: op(*a, mode=mode)
+        rows = battery_steps(b, el, 2)
+        w = torch.as_tensor(el / el.sum(), device=dev)
+        g = b.solve_adjoint(lambda u: torch.sum(u[:, 1] * w), ("sigma",))
+        return (b.getPotential(), b.getConcentration(),
+                [r[3] for r in rows], b.solve_tangent({"sigma": 1.0}),
+                g["sigma"])
+
+    out_g, out_c = _both(run)
+    for a, b in zip(out_g, out_c):
+        assert _rel(a, b) <= 1e-8
+    assert _rel(out_g[2], [-20.0 * 5.0 / 96485.33] * 2) <= 1e-8
