@@ -28,7 +28,7 @@ script exits non-zero before the last line):
   5. main     - the main path at full size: the 1024^2 float32 coupled
                 cavity of ``bench.py:main()``, warm-up + 10 timed outer
                 steps, with the kernel's launch counts per mode, variant and
-                level, and the device profile of two steps; then the same
+                level, and the device profile of one step; then the same
                 10 steps from the same state as one CUDA graph replay
                 (``coupled_steps``, bench's fused loop): residuals equal to
                 the eager loop's, ms per step, launches per step from the
@@ -130,7 +130,7 @@ script exits non-zero before the last line):
                 sweep against its bound, its plain version and
                 ``torch.addmv``; one outer as a graph replay (bit for bit
                 against the eager outer); cuda against cpu at 64^2
-                float64 over 5 outers with tight inner solves (the CPU
+                float64 over 3 outers with tight inner solves (the CPU
                 runs in child processes beside the card's);
  19. plate    - the two-material plate (``cases.two_material_plate``: a
                 contact-resistance interface and periodic walls) cuda
@@ -170,7 +170,7 @@ script exits non-zero before the last line):
                 at nx 24, ny_gap 12 (lumped stiffness, w at 0.3 and 0.6
                 V_PI, 1.4 V_PI pulls in), the cantilever at 40 x 6 with
                 inner solves at 1e-12 (deformation, tangent and adjoint in
-                E and their duality, Monte Carlo, three creep steps and the
+                E and their duality, Monte Carlo, two creep steps and the
                 von Mises stress), the FSI beam at n 24 and the small
                 models; then the switch at nx 192, ny_gap 64: the lumped
                 stiffness, main()'s bias sweep and the 1.1 V_PI snap-down
@@ -197,7 +197,7 @@ script exits non-zero before the last line):
                 quad_2d(512, 512) float64, with its charge matrix's kernel
                 rows; ``DielectricChargingModel`` on the column stand-in
                 for the absent 1x1x1000.cas (``cases.dielectric_column``)
-                over 3 of the reference script's 100 steps cuda against
+                over 2 of the reference script's 100 steps cuda against
                 cpu, then one step of the 16 x 16 membrane of columns
                 (``cases.charging_membrane``, 256,000 cells): s per step,
                 coefficient evaluation and Newton solve, Krylov trips per
@@ -218,6 +218,29 @@ script exits non-zero before the last line):
                 and per time step, the Li balance against -dt I / F,
                 kernels and idle share of a profiled Newton step; and one
                 capped Newton step at quad_2d(1024, 1024);
+ 29. kinetic  - the ES-BGK kinetic model (``fvm_tpu_torch.kinetic``) in
+                float64: cuda against cpu (the CPU side in three child
+                processes) on the demo Couette (``cases.esbgk_couette``,
+                COMET and Picard: the slip profile), the thick DSA case at
+                quad_2d(48, 3) (the JAX test's assertion on each device,
+                the plain run's relative residual the median over three
+                1e-15 changes of the wall temperature) and at quad_2d(32,
+                16) (one DSA application on seeded vectors, primal and
+                transposed, and one outer with the inner solve at 1e-12),
+                the tangent and adjoint in tau and the wall velocity at
+                quad_2d(3, 10) with their duality and trips, the immersed
+                moving plate at quad_2d(16, 16); ``outerChunk`` replays
+                against the eager step bit for bit; then the thick case at
+                card size: s per outer and per BiCGStab trip, ms per
+                exact-Jacobian product, per Woodbury and per DSA
+                application, ``dia_stencil`` launches per outer by mode and
+                level of the DSA hierarchy, the DSA's fine-level operator
+                against the plain version (bit for bit), peak memory, a
+                profiled outer and the fine level's kernel rows; and the
+                damping stand-in (``cases.esbgk_damping``) at Q(10, 10, 10)
+                on the largest 3:1 mesh within 40 GiB, one time step: s per
+                step, the beam force and its change, the conservation
+                error, peak memory;
 Each phase prints its seconds (``done`` lines).
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
@@ -227,7 +250,8 @@ plate's fine level in their own rows; the sensitivities' in the
 ``(sensitivity, f64)`` and ``(cavity sensitivities)`` rows; the
 structures family's in the ``(mems gap, f64)``, ``(fracture, f64)`` and
 ``(squeeze film, f64)`` rows; the remaining models' in the ``(charge
-transport, f64)``, ``(charging electrostatics, f64)`` and ``(ke)`` rows)
+transport, f64)``, ``(charging electrostatics, f64)`` and ``(ke)`` rows;
+the kinetic DSA's in the ``(kinetic DSA, f64)`` rows)
 and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
@@ -323,8 +347,8 @@ ANDERSON_STEPS = 60
 CONVERGE_NEWTON = 1
 CONVERGE_REACH = None
 # the chunk's replays profiled for its idle share (of its 20; profiling all
-# of them cost ~70 s of host time)
-CONVERGE_PROFILED = 2
+# of them cost ~70 s of host time; 2 until the kinetic phase needed time)
+CONVERGE_PROFILED = 1
 
 
 def log(phase, msg):
@@ -608,7 +632,7 @@ def library_name(mode, m):
     return "torch.mv" if mode == "mv" and m == 1 else LIBRARY_CALL[mode]
 
 
-def profile_steps(flow, thermal, step_ms, steps=2, run=None, tag="profile"):
+def profile_steps(flow, thermal, step_ms, steps=1, run=None, tag="profile"):
     """Device time of ``steps`` coupled steps by kernel (torch.profiler):
     the device-busy share of the unprofiled step time, the kernel launches
     per step, the ``dia_stencil`` kernels' device ms per step, and the
@@ -619,22 +643,17 @@ def profile_steps(flow, thermal, step_ms, steps=2, run=None, tag="profile"):
     from torch.profiler import ProfilerActivity, profile
     from fvm_tpu_torch.cases import coupled_step
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
+    # device activity alone: host-op events (several per kernel) are not
+    # read, and recording them cost ~0.5 ms per kernel of host time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if run is not None:
             run()
         else:
             for _ in range(steps):
                 coupled_step(flow, thermal)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        # device events only: an aten op's entry repeats its kernels' time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.self_device_time_total
-        if us > 0:
-            rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows = [(ms / steps, n / steps, key) for ms, n, key in device_rows(prof)
+            if ms > 0]
     if not rows:
         log(tag, "torch.profiler recorded no device time: not measured")
         return None
@@ -653,17 +672,8 @@ def profile_steps(flow, thermal, step_ms, steps=2, run=None, tag="profile"):
     log(tag, f"dia_stencil device time per step: "
         f"{sum(r[0] for r in dia):.4f} ms over {sum(r[1] for r in dia):g} "
         f"launches")
-    for ms, n, key in sorted(rows, reverse=True)[:10]:
+    for ms, n, key in rows[:10]:
         log(tag, f"  {ms:8.3f} ms/step {n:7.1f} calls/step  {key[:90]}")
-    # the PyTorch ops that issued those kernels (device time of each op's
-    # kernels, nested ops counted in their callers too)
-    ops = sorted(((e.device_time_total / 1e3 / steps, e.count / steps, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.key.startswith("aten::") and e.device_time_total > 0),
-                 reverse=True)
-    for ms, n, key in ops[:8]:
-        log(tag, f"  {ms:8.3f} ms/step {n:7.1f} calls/step  op {key}")
     return busy, kernels
 
 
@@ -1294,16 +1304,17 @@ def _newton_checks(device, children):
         del f_gpu
         gc.collect()
 
-    # a chunk's graph replay against the same chunks run eagerly
+    # a chunk's graph replay against the same chunks run eagerly (one
+    # Newton step; two until the kinetic phase needed the time)
     label, opts = NEWTON_MODES[1]
     with deterministic():
-        runs = [newton_run(snap, device, graphed, steps=2, **opts)
+        runs = [newton_run(snap, device, graphed, steps=1, **opts)
                 for graphed in (True, False)]
     (h_g, f_g), (h_e, f_e) = runs
     inner = f_g._runners[("newton", opts["newtonChunkIterations"])]
     same = h_g == h_e and all(torch.equal(f_g.state[k], f_e.state[k])
                               for k in f_g.state)
-    log("newton", f"{label}, 2 steps under deterministic algorithms: graph "
+    log("newton", f"{label}, 1 step under deterministic algorithms: graph "
         f"replays ({inner.trips_per_replay} iterations per replay, "
         f"{inner.replays} replays) "
         f"{'bit-identical to' if same else 'DIFFER from'}"
@@ -1422,18 +1433,14 @@ def converge_phase(device, kernels, result=None):
     inner.run_chunk(0.1)
     torch.cuda.synchronize()
     chunk_ms = 1e3 * (time.perf_counter() - t1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(CONVERGE_PROFILED):
             inner.trips.replay()
         torch.cuda.synchronize()
     part_ms = chunk_ms * CONVERGE_PROFILED / inner.n_replays
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 reverse=True)[:8]
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    top = rows[:8]
     idle = (f"{busy:.3f} ms in {CONVERGE_PROFILED} profiled replays, "
             f"{part_ms:.3f} ms of the unprofiled chunk's time "
             f"({100 - 100 * busy / part_ms:.1f}% idle; the profiler's own "
@@ -1514,6 +1521,23 @@ def per_outer(captured, trips):
                      for m in dk.MODES)
 
 
+def device_rows(prof):
+    """(device ms, records, name) of each name that a finished profiler
+    session recorded on the card, the largest first, summed from its raw
+    records: ``key_averages`` first builds an event object per record
+    (~0.1 ms each, tens of seconds for a replay of 100,000 kernels)."""
+    import torch
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = agg.get(e.name(), (0.0, 0))
+        agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((ms, n, key) for key, (ms, n) in agg.items()),
+                  reverse=True)
+
+
 def profile_run(tag, label, fn, wall_ms, top=6):
     """Profile one ``fn()`` (torch.profiler): device busy time against the
     unprofiled ``wall_ms``, the idle share, and the kernels that take the
@@ -1521,14 +1545,10 @@ def profile_run(tag, label, fn, wall_ms, top=6):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if not busy:
         log(tag, f"{label}: device busy not measured (no device events)")
@@ -1840,11 +1860,11 @@ def electrostatics_phase(device, suite, errors, smi):
 FAMILY_OUTERS = {"ILU0": 2, "SPIKE": 1}
 FAMILY_PROFILED = ("ILU0",)
 FAMILY_PROFILE_REPS = 20
-# cuda against cpu at 64^2 float64 over 5 outers (10 until the remaining
-# models' phases needed the time) with the inner solves tightened to 1e-10
+# cuda against cpu at 64^2 float64 over 3 outers (10 until the remaining
+# models' phases needed the time, 5 until the kinetic phase did) with the inner solves tightened to 1e-10
 # (cases.tighten_family), held at cases.FAMILY_TIGHT_RTOL
 FAMILY_SLICE_N = 64
-FAMILY_SLICE_OUTERS = 5
+FAMILY_SLICE_OUTERS = 3
 # phase 19: the plate at card size to a 1e-10 relative residual; its max
 # abs error against the exact series profile (K, temperatures of 300-400)
 # and the Mixed variant's energy balance (the heat flows over all groups
@@ -2175,15 +2195,12 @@ def families_phase(device, errors, smi):
                 coupled_step(flow, thermal)
                 torch.cuda.synchronize()
             prof_ms = 1e3 * (time.perf_counter() - t0)
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            rows = device_rows(prof)
+            busy = sum(r[0] for r in rows)
             log("family", f"{family}: one profiled outer ({prof_ms:.3f} "
-                f"ms): {sum(e.count for e in rows)} kernels and {busy:.3f} "
+                f"ms): {sum(r[1] for r in rows)} kernels and {busy:.3f} "
                 f"ms of device time recorded; the largest:")
-            top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                          for e in rows), reverse=True)[:6]
-            for ms, n, key in top:
+            for ms, n, key in rows[:6]:
                 log("family", f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
         # the applications on the first recorded pressure system
         A, b = prec["first"]
@@ -2766,12 +2783,12 @@ MEMS_SNAP_V = 1.1  # x V_PI, the demo's transient snap-down
 MEMS_SNAP_STEPS = 160
 MEMS_SWEEP_BUDGET = 4.0  # s of the card-size sweep (cut there)
 MEMS_SNAP_BUDGET = 2.0  # s of the card-size snap-down (cut there)
-MEMS_PROFILE_TRIPS = 8  # the plate's Krylov trips in the profiled iteration
+MEMS_PROFILE_TRIPS = 4  # the plate's Krylov trips in the profiled iteration
 CANT_GATE = (40, 6)
 CANT_GATE_SAMPLES = 1
 CANT_CREEP = {"creep": True, "creepConstant": 1e-4, "creepExponent": 1.0,
               "yieldStress": 1e6}
-CANT_CREEP_STEPS = 3
+CANT_CREEP_STEPS = 2  # 3 until the kinetic phase needed the time
 CANT_UQ = (160, 24)  # the largest cantilever fvm_tpu converges
 CANT_UQ_SAMPLES = 1
 CANT_CAP = (2048, 308)  # 630,784 cells, capped
@@ -2949,14 +2966,17 @@ def start_early(calls):
 
 
 def early_cpu_sides(group: str):
-    """The CPU sides of phase 13, of phases 18-22 or of phases 23-28
-    (``group`` "13", "18-22" or "23-28") as ``start_early`` pairs."""
+    """The CPU sides of phase 13, of phases 18-22, of phases 23-28 or of
+    phase 29 (``group`` "13", "18-22", "23-28" or "29") as ``start_early``
+    pairs."""
     if group == "13":
         return [(f"newton_cpu_side({p})", 3)
                 for p in range(len(NEWTON_CPU_PARTS))]
     if group == "18-22":
         return [(f"family_histories('cpu', ({f!r},))", 1)
                 for f in ("ILU0", "SPIKE")] + [("cavity_gate_run('cpu')", 1)]
+    if group == "29":
+        return gate_calls("kinetic_gates", KIN_PARTS)
     return (gate_calls("structures_gates", GATE_PARTS)
             + gate_calls("models_gates", MODEL_PARTS))
 
@@ -3480,8 +3500,9 @@ def motion_phase(device, smi):
 # beside the card's work), then the card-size runs
 CHARGE_GATE_N = 1000  # the column stand-in for the absent 1x1x1000.cas
 # of the reference script's 100 steps: cut by time (~2,300 Krylov trips a
-# step: 8 s a step on one CPU thread, 5.7 s on the card)
-CHARGE_GATE_STEPS = 3
+# step: 8 s a step on one CPU thread, 5.7 s on the card; 3 until the
+# kinetic phase needed the time)
+CHARGE_GATE_STEPS = 2
 CHARGE_MEMBRANE = (16, 16)  # columns of the card-size membrane
 CHARGE_MEMBRANE_STEPS = 1  # 21 s a step on the card
 # the membrane's averages against the column's, each on its own scale.
@@ -3509,7 +3530,7 @@ BATTERY_CARD = (256, 32)  # the largest cell fvm_tpu converges
 BATTERY_CARD_STEPS = 1
 BATTERY_CAP = (1024, 1024)  # 1,048,576 cells, capped
 BATTERY_CAP_TRIPS = 20
-BATTERY_PROFILE_TRIPS = 10
+BATTERY_PROFILE_TRIPS = 4
 MODEL_PARTS = ("charging", "rest")  # one CPU child each
 
 
@@ -3971,6 +3992,490 @@ def battery_phase(device, smi):
     return []
 
 
+# ---- phase 29: the ES-BGK kinetic solver (kinetic/esbgk.py, kinetic/dsa.py)
+# the demo Couette's COMET outers: its residual reaches its plateau (1.1e-9
+# from 9.5e-3) at the fourth and its slip profile with it
+KIN_COUETTE_OUTERS = 6
+KIN_SWEEP_OUTERS = 10
+# cuda against cpu on the slip profile: fvm_tpu's own interior distribution
+# moves by 4.1e-8 of its largest entry over the demo's first 20 outers
+# (1.6e-4 after the first) under a 1e-15 change of the wall velocity
+# (scripts/roundoff_sensitivity.py --cases kinetic)
+KIN_COUETTE_RTOL = 1e-5
+KIN_SWEEP_RTOL = 1e-10  # the Picard path moves by 3.7e-16
+KIN_THICK_GATE = (48, 3)  # tests/test_comet.py:158-191
+# the plain run's plateau is a round-off sample (fvm_tpu's own moves by 3.3
+# relative under a 1e-15 change of the wall temperature): its relative
+# residual is the median over these changes of the hot wall's temperature
+KIN_THICK_PLAIN_EPS = (0.0, 1e-15, 2e-15)
+# the thick case where its DSA hierarchy is DIA at every level: one DSA
+# application on seeded vectors, and one outer with the inner solve at
+# KIN_APPLY_INNER (tolerance, trips; 291 trips on the CPU)
+KIN_APPLY = (32, 16)
+KIN_APPLY_SEED = 7
+KIN_APPLY_INNER = (1e-12, 400)
+KIN_APPLY_RTOL = 1e-12
+KIN_OUTER_RTOL = 1e-10
+KIN_SENS = (3, 10)  # tests/test_kinetic.py:749-795's duality case
+KIN_SENS_OUTERS = 12  # its residual plateaus (~1e-9) by the fifth
+KIN_SENS_TRIPS = 400  # solve_adjoint's and solve_tangent's cap
+# the tangents, the adjoint and the duality: converged solves move by up to
+# 2.1e-9 and read a duality of 1.7e-12 to 3.0e-9 under 1e-16 and 1e-15
+# changes to the transposed products (scripts/kinetic_duality.py
+# --cpu-samples 4)
+KIN_SENS_RTOL = 1e-8
+KIN_DUAL_TOL = 1e-8
+KIN_IB_N = 16  # tests/test_kinetic.py:690-713's moving plate
+# one outer with the inner solves at 1e-12: fvm_tpu's own moments move by
+# 1.3e-12-5.5e-12 under a 1e-15 change of tau after one outer, 7.7e-7
+# after two (scripts/roundoff_sensitivity.py --cases kinetic)
+KIN_IB_OUTERS = 1
+KIN_IB_RTOL = 1e-8
+# (outerChunk, outers, inner trips) of the replay against eager (the inner
+# solve capped at 10 trips: 60 until the kinetic phase needed the time)
+KIN_CHUNK = (2, 2, 10)
+KIN_PARTS = ("thick", "apply", "rest")  # one CPU child each
+# the largest quad_2d(4k, k) within KIN_PEAK_GIB (k a multiple of 8): 41.24
+# GiB at quad_2d(1024, 256), 37.71 here (NVIDIA H100 80GB HBM3, 700.00 W)
+KIN_THICK_CARD = (992, 248)
+KIN_THICK_OUTERS = 2
+# the largest 3:1 quad_2d measured within KIN_PEAK_GIB: 18.13 GiB at
+# quad_2d(384, 128); quad_2d(576, 192) ran out of the card's memory in its
+# first outer (72.8 GiB allocated, 46.7 of them the graph-replayed
+# product's private pool; NVIDIA H100 80GB HBM3, 700.00 W)
+KIN_DAMP_CARD = (384, 128)
+KIN_DAMP_STEPS = 1  # of main()'s 40 (~19.5 s a step)
+KIN_PEAK_GIB = 40.0
+KIN_REPS = 5  # timed applications of the product and the preconditioners
+# the profiled outer's BiCGStab trips (of its 60): the profiler's own cost
+# grows with the kernels it records, ~2,000 a trip
+KIN_PROFILE_TRIPS = 4
+
+
+def held_gib():
+    """GiB allocated on the card now, after freeing what can be freed, with
+    the peak counter reset: a case's own peak is ``peak_gib()`` minus
+    this (earlier phases leave ~1.6 GiB held)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def kinetic_gates(device, parts=KIN_PARTS):
+    """Phase 29's small cases on ``device``, as plain numbers.  "thick": the
+    thick DSA case at KIN_THICK_GATE, 8 outers with the DSA and, for each
+    of KIN_THICK_PLAIN_EPS, without; "apply": the thick case at KIN_APPLY,
+    one DSA application (``thick_dsa_apply``) and one outer with a tight
+    inner solve; "rest": the demo Couette (COMET and Picard), the duality
+    case (``kinetic_duality``), the immersed moving plate with tight inner
+    solves."""
+    from fvm_tpu_torch import cases
+
+    out, t0 = {}, time.perf_counter()
+
+    def took(what):
+        nonlocal t0
+        log("kinetic", f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    if "thick" in parts:
+        m = cases.esbgk_thick(*KIN_THICK_GATE, dsa=True, device=device)
+        h = [r[1] for r in m.advance(cases.THICK_OUTERS)]
+        plain = []
+        for eps in KIN_THICK_PLAIN_EPS:
+            p = cases.esbgk_thick(*KIN_THICK_GATE, dsa=False, device=device)
+            p.bc["left"]["specifiedTemperature"] = 1.1 * (1.0 + eps)
+            hp = [r[1] for r in p.advance(cases.THICK_OUTERS)]
+            plain.append(hp[-1] / hp[0])
+        out["thick"] = {"history": h, "rel_dsa": h[-1] / h[0],
+                        "rel_plain": plain}
+        took(f"the thick case, {cases.THICK_OUTERS} outers with the DSA and "
+             f"{len(plain)} without")
+    if "apply" in parts:
+        m = cases.esbgk_thick(*KIN_APPLY, dsa=True, device=device)
+        out["apply"] = thick_dsa_apply(m)
+        m.options["innerTolerance"], m.options["innerIterations"] = \
+            KIN_APPLY_INNER
+        m._drop_compiled()
+        h = m.advance(1)
+        n = m.mesh.n_interior_cells
+        out["apply"].update(f1=m.state["f"][:n].cpu().tolist(),
+                            h0=h[0][1], trips=h.trips[0])
+        took(f"the thick case at quad_2d{KIN_APPLY}: one DSA application "
+             f"and one outer")
+    if "rest" not in parts:
+        return out
+    m = cases.esbgk_couette(device=device)
+    h = [r[1] for r in m.advance(KIN_COUETTE_OUTERS)]
+    ux, slip = cases.couette_profile(m)
+    out["couette"] = {"history": h, "ux": ux.tolist(), "slip": slip,
+                      "conservation": list(m.conservation_error())}
+    m = cases.esbgk_couette(device=device, options={"solver": "sweep"})
+    h = [r[1] for r in m.advance(KIN_SWEEP_OUTERS)]
+    out["sweep"] = {"history": h, "ux": cases.couette_profile(m)[0].tolist()}
+    took(f"the demo Couette, {KIN_COUETTE_OUTERS} COMET and "
+         f"{KIN_SWEEP_OUTERS} Picard outers")
+    out["sens"] = kinetic_duality(device)
+    took("the duality case (converge, two tangents, the adjoint)")
+    m = cases.esbgk_ib_plate(KIN_IB_N, device=device, pad_faces=80,
+                             options={"innerTolerance": 1e-12,
+                                      "innerIterations": 200})
+    h = [r[1] for r in m.advance(KIN_IB_OUTERS)]
+    rho, u, T = m.moments()
+    n = m.mesh.n_interior_cells
+    out["ib"] = {"history": h, "rho": rho[:n].tolist(),
+                 "ux": u[:n, 0].tolist(), "T": T[:n].tolist(),
+                 "force": m.getIBForceIntegral().tolist()}
+    took(f"the immersed plate, {KIN_IB_OUTERS} outers")
+    return out
+
+
+def thick_dsa_apply(m):
+    """One DSA application of the thick model ``m`` on seeded numbers (the
+    same on every device): at its state times 1 + 0.01 noise, on a noise
+    vector r, the two V-cycles M_T(r wE), the Woodbury + DSA composition
+    M_d(r) and its transpose M_d^T(r)."""
+    import torch
+    from fvm_tpu_torch.kinetic.dsa import DSAPrecond
+    from fvm_tpu_torch.kinetic.esbgk import _KineticOperator
+
+    rng = np.random.default_rng(KIN_APPLY_SEED)
+    f0 = m.state["f"]
+    f = f0 * torch.as_tensor(1.0 + 0.01 * rng.standard_normal(
+        tuple(f0.shape))).to(f0.device)
+    r = torch.as_tensor(rng.standard_normal(tuple(f0.shape))).to(f0.device)
+    mesh, params = m.mesh, m.params
+    V = mesh.cell_volume[:, None]
+    tau = params["tau"][:, None]
+    op = _KineticOperator(mesh, params["dO"], params["dN"], V / tau)
+    M_T, wE = m._dsa_tuple()[:2]
+    dsa = DSAPrecond(m._woodbury(op, f, V, tau), *m._dsa_tuple())
+    return {"M_T": M_T(r @ wE).tolist(),
+            "M_d": dsa.precond_setup(op)(r).tolist(),
+            "M_d^T": dsa.precond_setup_T(op)(r).tolist()}
+
+
+def kinetic_duality(device):
+    """The duality case (tests/test_kinetic.py:749-795: the Couette layout
+    at KIN_SENS, BGK, tau 0.2) after KIN_SENS_OUTERS outers: the tangents
+    in tau (seeded) and in the top wall's velocity, the adjoint of J =
+    sum((f w c_x)^2) in both, each pair <grad, dp> against dJ(tangent),
+    the seconds, the trips and the adjoint's final relative residual."""
+    import torch
+    from fvm_tpu_torch import cases
+
+    m = cases.esbgk_couette(*KIN_SENS, device=device, collision="BGK",
+                            tau=0.2)
+    m.advance(KIN_SENS_OUTERS)
+    ni = m.mesh.n_interior_cells
+    dtau = np.random.default_rng(3).standard_normal(ni)
+    bc = "top:specifiedXVelocity"
+    t1 = time.perf_counter()
+    tan = m.solve_tangent(param_tangents={"tau": dtau},
+                          max_iterations=KIN_SENS_TRIPS)
+    tan_s = time.perf_counter() - t1
+    tanb = m.solve_tangent(bc_tangents={bc: 1.0},
+                           max_iterations=KIN_SENS_TRIPS)
+    q = m.quadrature
+    wcx = torch.as_tensor(q.w * q.c[:, 0]).to(m.mesh.device)
+
+    def J(ff):
+        return torch.sum((ff @ wcx) ** 2)
+
+    t1 = time.perf_counter()
+    g = m.solve_adjoint(J, param_keys=("tau",), bc_keys=(bc,),
+                        max_iterations=KIN_SENS_TRIPS)
+    adj_s = time.perf_counter() - t1
+    f0 = m.state["f"][:ni]
+
+    def dJ(df):
+        return float(torch.func.jvp(J, (f0,), (torch.as_tensor(df).to(
+            f0.device),))[1])
+
+    pairs = ((float(np.dot(g["tau"], dtau)), dJ(tan)),
+             (float(np.sum(g[bc])), dJ(tanb)))
+    st = m.adjoint_stats
+    return {"tangent": tan.tolist(), "tangent_bc": tanb.tolist(),
+            "adjoint": g["tau"].tolist(), "pairs": pairs,
+            "duality": max(abs(a - b) / abs(b) for a, b in pairs),
+            "tan_s": tan_s, "adj_s": adj_s,
+            "adj_its": int(st.iterations),
+            "adj_rel": float(st.residual / st.residual0),
+            "tan_its": int(m.tangent_stats.iterations)}
+
+
+def kinetic_chunk_check(device):
+    """``outerChunk`` replays of the COMET step against the same step run
+    eagerly (forward-mode products in both), bit for bit."""
+    import torch
+    from fvm_tpu_torch import cases
+
+    chunk, outers, trips = KIN_CHUNK
+    runs = []
+    for ch in (0, chunk):
+        m = cases.esbgk_couette(*KIN_SENS, device=device, collision="BGK",
+                                tau=0.2, options={
+                                    "outerChunk": ch,
+                                    "innerIterations": trips,
+                                    "relativeTolerance": 1e-30})
+        if ch:
+            f_init = m.state["f"].clone()
+            m.advance(outers)  # the capture
+            m.state["f"] = f_init
+            m._initial_norm = None
+        else:
+            m._step = m._build_step("forward")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = m.advance(outers)
+        torch.cuda.synchronize()
+        runs.append(([r[1] for r in h], m.state["f"].clone(),
+                     (time.perf_counter() - t0) / outers))
+    (h0, f0, eager_s), (h1, f1, replay_s) = runs
+    same = h0 == h1 and torch.equal(f0, f1)
+    log("kinetic", f"outerChunk {chunk} replays against the eager step, "
+        f"{outers} outers of the quad_2d{KIN_SENS} Couette (inner solves "
+        f"of {trips} trips): " + ("bit for bit" if same else "DIFFER")
+        + f"; {1e3 * replay_s:.2f} ms per replayed outer, "
+        f"{1e3 * eager_s:.2f} eager")
+    if not same:
+        raise AssertionError("kinetic: the chunk replay differs from eager")
+
+
+def kinetic_checks(gpu, cpu):
+    """Phase 29's gates: cuda against cpu, and the JAX tests' assertions on
+    each device."""
+    th_g, th_c = gpu["thick"], cpu["thick"]
+    for dev, th in (("cuda", th_g), ("cpu", th_c)):
+        plain = float(np.median(th["rel_plain"]))
+        log("kinetic", f"thick quad_2d{KIN_THICK_GATE} on {dev}: rel_dsa "
+            f"{th['rel_dsa']:.3e}, rel_plain " + ", ".join(
+                f"{v:.3e}" for v in th["rel_plain"]) + f" (median {plain:.3e})"
+            f"; history with the DSA " + ", ".join(
+                f"{v:.4e}" for v in th["history"]))
+        if not (th["rel_dsa"] < 1e-3 and th["rel_dsa"] < plain / 5):
+            raise AssertionError(f"kinetic: the thick DSA assertion fails on "
+                                 f"{dev}")
+    check_gates("kinetic", {"thick h0": th_g["history"][0]},
+                {"thick h0": th_c["history"][0]}, ("thick h0",), rtol=1e-10)
+    a_g, a_c = gpu["apply"], cpu["apply"]
+    log("kinetic", f"thick quad_2d{KIN_APPLY}: one DSA application on seeded "
+        f"vectors; one outer with the inner solve at {KIN_APPLY_INNER[0]:g}"
+        f": {a_g['trips']} trips cuda, {a_c['trips']} cpu")
+    check_gates("kinetic", a_g, a_c, ("M_T", "M_d", "M_d^T"),
+                rtol=KIN_APPLY_RTOL)
+    check_gates("kinetic", a_g, a_c, ("h0", "f1"), rtol=KIN_OUTER_RTOL)
+    if not max(a_g["trips"], a_c["trips"]) < KIN_APPLY_INNER[1]:
+        raise AssertionError("kinetic: the thick outer's inner solve did not "
+                             "converge")
+    c_g, c_c = gpu["couette"], cpu["couette"]
+    log("kinetic", f"Couette quad_2d(3, 32) ES-BGK: slip cuda "
+        f"{c_g['slip']:.9f} cpu {c_c['slip']:.9f}; histories cuda "
+        + ", ".join(f"{v:.3e}" for v in c_g["history"]) + "; cpu "
+        + ", ".join(f"{v:.3e}" for v in c_c["history"])
+        + f"; conservation error cuda " + ", ".join(
+            f"{v:.2e}" for v in c_g["conservation"]))
+    check_gates("kinetic", c_g, c_c, ("ux",), rtol=KIN_COUETTE_RTOL)
+    check_gates("kinetic", gpu["sweep"], cpu["sweep"], ("history", "ux"),
+                rtol=KIN_SWEEP_RTOL)
+    if not (c_g["slip"] > 0.05 and c_g["ux"][-1] > 0.05
+            and abs(c_g["ux"][-1] + c_g["ux"][0]) < 0.02):
+        raise AssertionError("kinetic: no antisymmetric slip profile")
+    s_g, s_c = gpu["sens"], cpu["sens"]
+    log("kinetic", f"duality case quad_2d{KIN_SENS}: tangent "
+        f"{s_g['tan_s']:.2f} s ({s_g['tan_its']} trips), adjoint "
+        f"{s_g['adj_s']:.2f} s "
+        f"({s_g['adj_its']} trips, relative residual {s_g['adj_rel']:.2e}) "
+        f"on the card, {s_c['adj_its']} trips ({s_c['adj_rel']:.2e}) on the "
+        f"cpu; duality cuda {s_g['duality']:.3e} cpu {s_c['duality']:.3e}")
+    check_gates("kinetic", s_g, s_c, ("tangent", "tangent_bc", "adjoint"),
+                rtol=KIN_SENS_RTOL)
+    if not max(s_g["adj_its"], s_c["adj_its"], s_g["tan_its"],
+               s_c["tan_its"]) < KIN_SENS_TRIPS:
+        raise AssertionError("kinetic: a sensitivity solve stopped at its "
+                             "cap")
+    if not max(s_g["duality"], s_c["duality"]) <= KIN_DUAL_TOL:
+        raise AssertionError("kinetic: the adjoint and the tangent disagree")
+    i_g, i_c = gpu["ib"], cpu["ib"]
+    log("kinetic", f"immersed plate quad_2d({KIN_IB_N}, {KIN_IB_N}): IB force "
+        f"cuda {i_g['force']} cpu {i_c['force']}")
+    check_gates("kinetic", i_g, i_c, ("rho", "ux", "T", "force"),
+                rtol=KIN_IB_RTOL)
+
+
+def thick_outer_parts(m):
+    """ms per exact-Jacobian product (the step's mode), per Woodbury
+    application, per DSA application and per M_T (the two V-cycles) at the
+    model's state; and the fine-level dia_stencil launches of the DSA's
+    condensed matrix against the plain version (bit for bit)."""
+    import torch
+    from fvm_tpu_torch.kinetic.dsa import DSAPrecond
+    from fvm_tpu_torch.kinetic.esbgk import _JVPOperator, _KineticOperator
+    from fvm_tpu_torch.linear.base import product_mode
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    mesh, params = m.mesh, m.params
+    bc = m._resolve_bcvals()
+    f = m._refresh_ghosts(mesh, params, m.state["f"], bc)
+    V = mesh.cell_volume[:, None]
+    tau = params["tau"][:, None]
+    op_plain = _KineticOperator(mesh, params["dO"], params["dN"], V / tau)
+    R_of = m._comet_R_of(mesh, params, bc)
+    mode = product_mode(f)
+    op = _JVPOperator(op_plain, lambda fv: R_of({}, {}, fv), f, mode)
+    point = m._woodbury(op_plain, f, V, tau)
+    dsa = DSAPrecond(point, *m._dsa_tuple())
+    r = torch.randn(f.shape, dtype=f.dtype, device=f.device,
+                    generator=torch.Generator(f.device).manual_seed(7))
+    Mw, Md = point.precond_setup(op), dsa.precond_setup(op)
+    M_T = m._dsa_tuple()[0]
+    rT = r @ m._dsa_tuple()[1]
+    parts = {name: time_events([fn], KIN_REPS) for name, fn in (
+        ("product (" + mode + ")", lambda: op.mv(r)),
+        ("Woodbury", lambda: Mw(r)),
+        ("DSA (Woodbury + 2 V-cycles)", lambda: Md(r)),
+        ("2 V-cycles", lambda: M_T(rT)))}
+    # the DSA's own fine-level operator: every mode against the plain
+    # version on the real coefficients
+    A = M_T.matrix.prepare()
+    offs = A.dia.offsets
+    worst = 0.0
+    for mode_ in dk.MODES:
+        kw = {} if mode_ == "mv" else {"b": rT}
+        if mode_ == "jacobi":
+            kw["omega"] = 0.7
+        y = dk._launch(offs, mode_, A.dia_coef, A.diag, rT, kw.get("b"),
+                       kw.get("omega"))
+        want = dk.dia_stencil_plain(offs, mode_, A.dia_coef, A.diag, rT,
+                                    **kw)
+        err = float((y - want).abs().max())
+        if not err == 0.0:
+            raise AssertionError(f"kinetic: the DSA's {mode_} disagrees with "
+                                 f"the plain version: {err:.3e}")
+        worst = max(worst, err)
+    del op, point, dsa, Mw, Md
+    return parts, worst, A.n, tuple(offs)
+
+
+def kinetic_phase(device, smi):
+    """29 (module docstring); returns the DSA fine level's kernel rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.linear.base import product_mode
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    gpu = gates("kinetic_gates", KIN_PARTS, device)
+    kinetic_chunk_check(device)
+
+    # ---- the thick case at card size
+    nx, ny = KIN_THICK_CARD
+    base = held_gib()
+    t0 = time.perf_counter()
+    m = cases.esbgk_thick(nx, ny, dsa=True, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = m.mesh.n_interior_cells
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    hist = m.advance(KIN_THICK_OUTERS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = peak_gib() - base
+    trips = sum(hist.trips)
+    launches = dk.type_launches(torch.float64)
+    shapes = kb.level_shapes(m._dsa_tuple()[0].amg, m.mesh)
+    log("kinetic", f"thick quad_2d({nx}, {ny}) float64, periodic "
+        f"bottom/top, DSA on: {n} cells x {m.quadrature.N} ordinates "
+        f"(f {m.state['f'].numel() * 8 / 1e6:.0f} MB, products "
+        f"{product_mode(m.state['f'])}); set up {setup_s:.2f} s (DSA "
+        f"hierarchy: {describe(shapes)}); {len(hist)} COMET outers in "
+        f"{run_s:.2f} s ({run_s / len(hist):.2f} s per outer, "
+        f"{trips} BiCGStab trips, {1e3 * run_s / max(trips, 1):.1f}"
+        f" ms per trip); residuals " + ", ".join(
+            f"{r[1]:.6e}" for r in hist)
+        + f"; peak {peak:.3f} GiB above the {base:.3f} held "
+        f"before [{smi}]")
+    log("kinetic", "dia_stencil launches per outer: " + ", ".join(
+        f"{k} {v / len(hist):g}" for k, v in sorted(launches.items()))
+        + "; by level: " + level_launches(shapes))
+    if not launches.get("jacobi"):
+        raise AssertionError("kinetic: the DSA cycles never launched "
+                             "dia_stencil")
+    if peak > KIN_PEAK_GIB:
+        raise AssertionError(f"kinetic: peak {peak:.1f} GiB above "
+                             f"{KIN_PEAK_GIB:g}")
+    if not np.isfinite([r[1] for r in hist]).all():
+        raise AssertionError("kinetic: the card-size thick run is not "
+                             "finite")
+    parts, worst, n_fine, offs = thick_outer_parts(m)
+    log("kinetic", "at the last state, ms per application: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; the DSA's fine level ({n_fine} rows, offsets {offs}) "
+        f"against the plain version in every mode: max abs err {worst:g}"
+        f" [{smi}]")
+    inner = m.options["innerIterations"]
+    m.options["innerIterations"] = KIN_PROFILE_TRIPS
+    m._step = m._build_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.advance(1)
+    torch.cuda.synchronize()
+    profile_run("kinetic", f"one thick outer, its BiCGStab capped at "
+                f"{KIN_PROFILE_TRIPS} trips", lambda: m.advance(1),
+                1e3 * (time.perf_counter() - t0), top=8)
+    m.options["innerIterations"] = inner
+    rows = shape_rows(" (kinetic DSA, f64)", "kinetic DSA fine level",
+                      m.mesh, launches, device, "float64")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the damping stand-in at its published quadrature, card size
+    nx, ny = KIN_DAMP_CARD
+    base = held_gib()
+    t0 = time.perf_counter()
+    m = cases.esbgk_damping(nx, ny, device=device)
+    F0 = m.getMomentumFluxIntegral("top")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows_d = cases.damping_steps(m, KIN_DAMP_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = peak_gib() - base
+    F = m.getMomentumFluxIntegral("top")
+    cons = m.conservation_error()
+    log("kinetic", f"damping quad_2d({nx}, {ny}) ({cases.DAMPING_STANDIN}), "
+        f"Q(10,10,10): {m.mesh.n_interior_cells} cells x {m.quadrature.N} "
+        f"ordinates, products {product_mode(m.state['f'])}; set up "
+        f"{setup_s:.2f} s; {len(rows_d)} time steps of advance("
+        f"{cases.DAMPING_OUTERS}) in {run_s:.2f} s ({run_s / len(rows_d):.2f}"
+        f" s per step; cut from main()'s 40; per step outers, last residual,"
+        f" F_y: " + "; ".join(
+            f"{r[0]}, {r[1]:.3e}, {r[2]:+.9e}" for r in rows_d)
+        + f"); beam force static {F0[1]:+.9e}, now {F[1]:+.9e}, "
+        f"change {F[1] - F0[1]:+.3e}; conservation error " + ", ".join(
+            f"{v:.2e}" for v in cons) + f"; peak {peak:.3f} GiB above "
+        f"the {base:.3f} held before [{smi}]")
+    if not np.isfinite(F).all():
+        raise AssertionError("kinetic: the damping run is not finite")
+    if peak > KIN_PEAK_GIB:
+        raise AssertionError(f"kinetic: damping peak {peak:.1f} GiB")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cpu = gates("kinetic_gates", KIN_PARTS, "cpu")
+    log("kinetic", f"waited {time.perf_counter() - t0:.1f} s for the CPU side")
+    kinetic_checks(gpu, cpu)
+    return rows
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -4040,6 +4545,9 @@ def main() -> int:
     done("2")
 
     # ---- 3. kernel vs plain on the card -----------------------------------
+    # phase 13's CPU side starts here, beside phases 3-12 (started with
+    # phase 12, phase 13 waited 19-27 s for it)
+    start_early(early_cpu_sides("13"))
     # the main path's case, one warm-up step to build its AMG hierarchies
     t0 = time.time()
     flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
@@ -4223,7 +4731,7 @@ def main() -> int:
     done("11")
 
     # ---- 12. the cavity path's options -------------------------------------
-    start_early(early_cpu_sides("13"))
+    start_early(early_cpu_sides("18-22"))
     options_phase(device)
     kernels += bf16_main_phase(device, n_main, main_offsets, errors)
 
@@ -4241,7 +4749,6 @@ def main() -> int:
     done("14")
 
     # ---- 15-17. bench.py --suite ------------------------------------------
-    start_early(early_cpu_sides("18-22"))
     suite, errors_suite = {}, {}
     homocase_phase(device, suite, smi)
     _, fine_ch = channel_phase(device, suite, errors_suite, smi)
@@ -4277,9 +4784,15 @@ def main() -> int:
     log("done", f"phases 23-25 in {time.time() - t23:.1f} s")
 
     # ---- 26-28. the remaining models -------------------------------------
+    start_early(early_cpu_sides("29"))
     t26 = time.time()
     kernels.extend(extras_phases(device, smi, (26, 27, 28)))
-    log("done", f"phases 26-28 in {time.time() - t26:.1f} s; phases 1-28 in "
+    log("done", f"phases 26-28 in {time.time() - t26:.1f} s")
+
+    # ---- 29. the ES-BGK kinetic solver -----------------------------------
+    t29 = time.time()
+    kernels.extend(extras_phases(device, smi, (29,)))
+    log("done", f"phase 29 in {time.time() - t29:.1f} s; phases 1-29 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4288,7 +4801,7 @@ def main() -> int:
 
 
 def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
-    """Phases 18-28 (those in ``phases``), each timed; returns their
+    """Phases 18-29 (those in ``phases``), each timed; returns their
     ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
@@ -4303,7 +4816,8 @@ def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
             (25, lambda: rows.extend(motion_phase(device, smi))),
             (26, lambda: rows.extend(charging_phase(device, smi))),
             (27, lambda: rows.extend(ke_phase(device, smi))),
-            (28, lambda: rows.extend(battery_phase(device, smi)))):
+            (28, lambda: rows.extend(battery_phase(device, smi))),
+            (29, lambda: rows.extend(kinetic_phase(device, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

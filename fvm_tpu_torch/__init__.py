@@ -30,5 +30,6 @@ from . import ops
 from . import linear
 from . import models
 from . import geom
+from . import kinetic
 
 __version__ = "0.1.0"

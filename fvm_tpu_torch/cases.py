@@ -1324,3 +1324,139 @@ def battery_steps(b, electrode, steps: int, newton: int = 20):
         b.updateTime()
         c_prev = c_now
     return rows
+
+
+# the kinetic (ES-BGK) cases: the reference's rarefied-gas drivers.
+# ``esbgk_couette``: demos/esbgk_couette.py (the reference's
+# ESBGK_Couette.py): ES-BGK, tau 0.1, diffuse walls at +-0.3, symmetry
+# sides, Q(8, 8, 4), 80 outers.  ``esbgk_thick``: the thick heat transfer
+# of tests/test_comet.py:158-191 (tau 0.01, diffuse walls at 1.1 and 0.9,
+# periodic bottom/top, inner BiCGStab 60 trips at 1e-9, 8 outers, with and
+# without the DSA).  ``esbgk_damping``: demos/esbgk_damping.py's generated
+# fallback for the absent Damping2D.cas (the reference's DampingESBGK.py):
+# Q(10, 10, 10), transient BDF1 at dt 5e-3, the beam ``top`` moving toward
+# the substrate at -0.00594, a PressureInlet ``right``, Symmetry ``left``;
+# each time step is ``advance(5)`` then ``updateTime``.
+
+COUETTE_UW = 0.3
+COUETTE_OUTERS = 80
+THICK_OUTERS = 8
+DAMPING_UWALL = 0.0297 * 0.2  # DampingESBGK.py's uwall in reduced units
+DAMPING_OUTERS = 5
+DAMPING_STANDIN = ("quad_2d(3 ny, ny) stand-in (demos/esbgk_damping.py's "
+                   "generated fallback) for the absent Damping2D.cas")
+
+
+def _kinetic(mesh, device, quad):
+    from .kinetic import KineticModel, Quadrature
+
+    m = KineticModel(build_device_mesh(mesh, dtype="float64", device=device),
+                     Quadrature(*quad))
+    m.options["verbose"] = False
+    return m
+
+
+def esbgk_couette(nx: int = 3, ny: int = 32, device=None, quad=(8, 8, 4),
+                  collision="ESBGK", tau=0.1, options=None):
+    """The Couette driver's ``KineticModel`` on quad_2d(nx, ny) (its main()
+    at 3 x 32), initialised; ``options`` are set before ``init``."""
+    m = _kinetic(quad_2d(nx, ny), device, quad)
+    m.options["collisionModel"] = collision
+    m.vc["relaxationTime"] = tau
+    m.bc["top"].bc_type = "DiffuseWall"
+    m.bc["top"]["specifiedXVelocity"] = COUETTE_UW
+    m.bc["bottom"].bc_type = "DiffuseWall"
+    m.bc["bottom"]["specifiedXVelocity"] = -COUETTE_UW
+    m.bc["left"].bc_type = "Symmetry"
+    m.bc["right"].bc_type = "Symmetry"
+    for k, v in (options or {}).items():
+        m.options[k] = v
+    m.init()
+    return m
+
+
+def couette_profile(m):
+    """The x-averaged u_x profile (ny,) of a Couette model (quad_2d
+    numbering: x-major) and its wall slip, u_w minus the top row's u_x."""
+    n = m.mesh.n_interior_cells
+    y = m.mesh.cell_centroid[:n, 1].cpu().numpy()
+    ny = len(np.unique(np.round(y, 9)))
+    _, u, _ = m.moments()
+    ux = u[:n, 0].cpu().numpy().reshape(n // ny, ny).mean(axis=0)
+    return ux, COUETTE_UW - ux[-1]
+
+
+def esbgk_ib_plate(n: int = 16, device=None, quad=(8, 8, 4), options=None,
+                   pad_faces=None):
+    """The immersed plate of tests/test_kinetic.py:690-713 on quad_2d(n,
+    n): a closed box of diffuse walls at rest, COMET, tau 0.2, a solid
+    plate (|x - 0.5| < 0.25, |y - 0.5| < 0.1) sliding at u_x 0.2;
+    initialised, its immersed boundary set."""
+    m = _kinetic(quad_2d(n, n), device, quad)
+    m.vc["relaxationTime"] = 0.2
+    for s in ("left", "right", "bottom", "top"):
+        m.bc[s].bc_type = "DiffuseWall"
+    for k, v in (options or {}).items():
+        m.options[k] = v
+    m.init()
+    cc = m.mesh.cell_centroid[: m.mesh.n_interior_cells].cpu().numpy()
+    solid = (np.abs(cc[:, 0] - 0.5) < 0.25) & (np.abs(cc[:, 1] - 0.5) < 0.1)
+    m.set_immersed_boundary(solid, wall_velocity=(0.2, 0.0, 0.0),
+                            pad_faces=pad_faces)
+    return m
+
+
+def esbgk_thick(nx: int = 48, ny: int = 3, dsa: bool = True, device=None):
+    """The thick heat-transfer ``KineticModel`` on quad_2d(nx, ny) over
+    the unit square, periodic bottom/top, ``coarseAcceleration`` = ``dsa``,
+    initialised."""
+    mesh = quad_2d(nx, ny)
+    mesh.make_periodic("bottom", "top")
+    m = _kinetic(mesh, device, (8, 8, 4))
+    m.options["innerIterations"] = 60
+    m.options["innerTolerance"] = 1e-9
+    m.options["coarseAcceleration"] = dsa
+    m.vc["relaxationTime"] = 0.01
+    m.bc["left"].bc_type = "DiffuseWall"
+    m.bc["left"]["specifiedTemperature"] = 1.1
+    m.bc["right"].bc_type = "DiffuseWall"
+    m.bc["right"]["specifiedTemperature"] = 0.9
+    m.bc["bottom"].bc_type = "Periodic"
+    m.bc["top"].bc_type = "Periodic"
+    m.init()
+    return m
+
+
+def esbgk_damping(nx: int = 24, ny: int = 8, device=None):
+    """The damping driver's ``KineticModel`` on its generated fallback,
+    quad_2d(nx, ny) over 3 x 1 (the driver's 24 x 8), initialised: the
+    stand-in for the absent Damping2D.cas (``DAMPING_STANDIN``)."""
+    m = _kinetic(quad_2d(nx, ny, lx=3.0, ly=1.0), device, (10, 10, 10))
+    m.options["collisionModel"] = "ESBGK"
+    m.options["transient"] = True
+    m.options["timeStep"] = 0.5e-2
+    m.vc["relaxationTime"] = 0.2
+    m.bc["top"].bc_type = "DiffuseWall"
+    m.bc["top"]["specifiedTemperature"] = 1.0
+    m.bc["top"]["specifiedYVelocity"] = -DAMPING_UWALL
+    m.bc["bottom"].bc_type = "DiffuseWall"
+    m.bc["bottom"]["specifiedTemperature"] = 1.0
+    m.bc["left"].bc_type = "Symmetry"
+    m.bc["right"].bc_type = "PressureInlet"
+    m.bc["right"]["specifiedPressure"] = 1.0
+    m.bc["right"]["specifiedTemperature"] = 1.0
+    m.init()
+    return m
+
+
+def damping_steps(m, steps: int, outers: int = DAMPING_OUTERS):
+    """``steps`` of the damping driver's loop (``advance(outers)`` then
+    ``updateTime``); per step (outer iterations, last residual, the beam
+    force y component)."""
+    rows = []
+    for _ in range(steps):
+        hist = m.advance(outers)
+        m.updateTime()
+        rows.append((len(hist), hist[-1][1],
+                     float(m.getMomentumFluxIntegral("top")[1])))
+    return rows

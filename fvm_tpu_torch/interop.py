@@ -15,12 +15,19 @@ import torch
 
 
 # the immersed-boundary parameters (``set_immersed_boundary``): a snapshot
-# may carry them where the model has none yet; their leading size is the
-# mesh's cells or faces, and whether they are floating or bool
-IB_PARAMS = {"ib_mask": ("n_cells", False), "ib_value": ("n_cells", True),
-             "ib_solid_mask": ("n_cells", False),
-             "ib_solid_face": ("n_faces", False),
-             "ib_face_sign": ("n_faces", True)}
+# may carry them where the model has none yet; their leading size (the
+# mesh's cells or faces, or None: the kinetic model's tables, sized by its
+# immersed-boundary faces or ``pad_faces``) and their kind (floating, bool
+# or integer)
+IB_PARAMS = {"ib_mask": ("n_cells", "b"), "ib_value": ("n_cells", "f"),
+             "ib_solid_mask": ("n_cells", "b"),
+             "ib_solid_face": ("n_faces", "b"),
+             "ib_face_sign": ("n_faces", "f"),
+             "ib_pin": ("n_cells", "b"), "ib_solid_cell": (None, "i"),
+             "ib_fluid_cell": (None, "i"), "ib_mdot_s": (None, "f"),
+             "ib_Mw": (None, "f")}
+_KINDS = {"f": ("floating", None), "b": ("bool", torch.bool),
+          "i": ("integer", torch.int64)}
 
 
 def _load(kind: str, have: dict, given: dict, mesh, optional=()) -> dict:
@@ -35,16 +42,20 @@ def _load(kind: str, have: dict, given: dict, mesh, optional=()) -> dict:
         a = np.asarray(v)
         ref = have.get(k)
         if ref is None:
-            size, floating = IB_PARAMS[k]
-            if a.ndim == 0 or a.shape[0] != getattr(mesh, size) or (
-                    a.dtype.kind == "f") != floating:
+            size, akind = IB_PARAMS[k]
+            what, tdtype = _KINDS[akind]
+            kind_ok = a.dtype.kind in ("iu" if akind == "i" else akind)
+            if a.ndim == 0 or not kind_ok or (
+                    size is not None and a.shape[0] != getattr(mesh, size)):
+                where = ("" if size is None else
+                         f" over the mesh's {getattr(mesh, size)} {size[2:]}")
                 raise ValueError(
                     f"{kind}[{k!r}]: shape {a.shape} ({a.dtype}) is not a "
-                    f"{'floating' if floating else 'bool'} array over the "
-                    f"mesh's {getattr(mesh, size)} {size[2:]}")
-            shape, is_float = a.shape, floating
+                    f"{what} array{where}")
+            shape, is_float = a.shape, akind == "f"
         else:
             shape, is_float = tuple(ref.shape), ref.dtype.is_floating_point
+            tdtype = ref.dtype
         if tuple(a.shape) != shape:
             raise ValueError(
                 f"{kind}[{k!r}]: shape {a.shape} does not match the model's "
@@ -52,8 +63,7 @@ def _load(kind: str, have: dict, given: dict, mesh, optional=()) -> dict:
             )
         t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
         out[k] = t.to(device=mesh.device,
-                      dtype=mesh.dtype if is_float else
-                      (ref.dtype if ref is not None else torch.bool))
+                      dtype=mesh.dtype if is_float else tdtype)
     return out
 
 
@@ -64,7 +74,10 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
     ``fvm_tpu.models.fmg.snapshot_state`` (``momAp`` and ``massFlux``
     included) has the same keys as the port model's state and loads as
     it is; so do its params, the immersed-boundary ones (``IB_PARAMS``)
-    included.  New params rebuild the model's step and drop its captured
+    included.  So does a ``KineticModel``'s state (f, and f_N1 when
+    transient) and its params (tau, dO, dN, the integer ``periodic_src:*``
+    and ``refl_idx:*`` tables, ``refl_w:*`` and, after
+    ``set_immersed_boundary``, its ``ib_*`` tables).  New params rebuild the model's step and drop its captured
     graphs, which read the old ones.
 
     The structures models load the same way: ``StructureModel``'s

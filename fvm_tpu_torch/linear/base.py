@@ -373,3 +373,18 @@ class TransposedOperator:
 
     def diag_solve(self, r):
         return self._A.diag_solve(r)
+
+
+class TransposedPrecond:
+    """M^-T from a preconditioner that knows its own transpose
+    (``fvm_tpu/linear/base.py:196-212``): its ``precond_setup_T`` gives
+    the transposed application r -> M^-T r (exact for the closed-form
+    Woodbury; a symmetric cycle reuses itself), as good for the transposed
+    system as the original is for the primal.  The kinetic adjoint reuses
+    the Woodbury(+DSA) composition on A^T through it."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def precond_setup(self, op):
+        return self._inner.precond_setup_T(op)

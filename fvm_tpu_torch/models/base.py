@@ -429,12 +429,15 @@ def newton_advance(model, niter: int) -> ResidualHistory:
     residual norm against the first one."""
     opts = model.options
     hist = ResidualHistory()
+    hist.trips = []  # the inner solve's trips per step, if the step gives them
     bcvals = model._resolve_bcvals()
     for it in range(niter):
         with model._phase("step"):
             model.state, aux = model._step(model.mesh, model.params,
                                            model.state, bcvals)
         rnorm = float(aux["rnorm"])
+        if "trips" in aux:
+            hist.trips.append(int(aux["trips"]))
         model._guard_residual(rnorm, it)
         if model._initial_norm is None or model._initial_norm == 0.0:
             model._initial_norm = rnorm

@@ -2,7 +2,7 @@
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
         ib,channel,homocase,electric,goldens,structures,transport,ke,
-        battery,charging]
+        battery,charging,kinetic]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -60,6 +60,22 @@ all by default):
 * ``charging``: the dielectric column stand-in of ``DielectricCharging
   Model`` (``hex_3d(1, 1, 150)``, 200 nm, 5 steps of the reference script's loop),
   the membrane voltage scaled: the (time, trapped, band) history.
+* ``kinetic``: the ES-BGK cases: the Couette of
+  ``tests/test_torch_kinetic_solve.py`` (quad_2d(3, 6), Q(6, 6, 4), tau
+  scaled; COMET with the inner solve at 1e-12 in BGK and ES-BGK, and
+  Picard; 2 outers); ``demos/esbgk_couette.py``'s (quad_2d(3, 32), Q(8, 8,
+  4), ES-BGK, 20 of its 80 outers) and the small COMET Couette of
+  ``tests/test_comet.py:16`` (quad_2d(3, 10), Q(6, 6, 4), BGK, 12
+  outers), the top wall velocity scaled; the thick heat transfer of
+  ``tests/test_comet.py:158-191`` (quad_2d(48, 3), 8 outers, with and
+  without the DSA), the hot wall temperature scaled; the damping driver's
+  fallback (``demos/esbgk_damping.py``, quad_2d(24, 8), Q(10, 10, 10), 2
+  time steps of ``advance(5)``), the relaxation time scaled (a 1e-15
+  change of the beam's 0.00594 is lost in c - u); the immersed moving
+  plate of ``tests/test_kinetic.py:690`` (quad_2d(16, 16), Q(8, 8, 4),
+  inner solves at 1e-12, 2 outers), the relaxation time scaled: the
+  residual histories, the interior distribution after the first outer and
+  at the end, and the beam force.
 
 A port held against these histories cannot be held tighter than this
 spread; the port's parity tests run the Newton and Poiseuille
@@ -249,6 +265,8 @@ def main() -> int:
         _ke(jfvm)
     if "charging" in cases:
         _charging()
+    if "kinetic" in cases:
+        _kinetic(jfvm)
     if "newton" not in cases:
         if "poiseuille" in cases:
             _poiseuille(JFlow, jfvm, spread)
@@ -640,6 +658,133 @@ def _battery(jfvm, spread):
                       f"difference {spread(h0[:n], h1[:n]):.3e}; unknowns "
                       f"{float(np.abs(u0 - u1).max() / np.abs(u0).max()):.3e}",
                       flush=True)
+
+
+def _kinetic(jfvm):
+    """The ``kinetic`` case (module docstring)."""
+    from fvm_tpu.kinetic import KineticModel, Quadrature
+
+    def couette(eps, nx, ny, quad, coll):
+        m = KineticModel(jfvm.mesh.build_device_mesh(
+            jfvm.mesh.generate.quad_2d(nx, ny)), Quadrature(*quad))
+        m.options["verbose"] = False
+        m.options["collisionModel"] = coll
+        m.vc["relaxationTime"] = 0.1 if coll == "ESBGK" else 0.2
+        m.bc["top"].bc_type = "DiffuseWall"
+        m.bc["top"]["specifiedXVelocity"] = 0.3 * (1 + eps)
+        m.bc["bottom"].bc_type = "DiffuseWall"
+        m.bc["bottom"]["specifiedXVelocity"] = -0.3
+        m.bc["left"].bc_type = "Symmetry"
+        m.bc["right"].bc_type = "Symmetry"
+        m.init()
+        return m
+
+    def thick(eps, dsa):
+        mesh = jfvm.mesh.generate.quad_2d(48, 3)
+        mesh.make_periodic("bottom", "top")
+        m = KineticModel(jfvm.mesh.build_device_mesh(mesh),
+                         Quadrature(8, 8, 4))
+        m.options["verbose"] = False
+        m.options["innerIterations"] = 60
+        m.options["innerTolerance"] = 1e-9
+        m.options["coarseAcceleration"] = dsa
+        m.vc["relaxationTime"] = 0.01
+        m.bc["left"].bc_type = "DiffuseWall"
+        m.bc["left"]["specifiedTemperature"] = 1.1 * (1 + eps)
+        m.bc["right"].bc_type = "DiffuseWall"
+        m.bc["right"]["specifiedTemperature"] = 0.9
+        m.bc["bottom"].bc_type = "Periodic"
+        m.bc["top"].bc_type = "Periodic"
+        m.init()
+        return m
+
+    def run(label, make, outers):
+        hs, f1, fe = [], [], []
+        for eps in (0.0, 1e-15):
+            m = make(eps)
+            n = m.mesh.n_interior_cells
+            h = [r[1] for r in m.advance(1)]
+            f1.append(np.asarray(m.state["f"])[:n])
+            h += [r[1] for r in m.advance(outers - 1)]
+            hs.append(h)
+            fe.append(np.asarray(m.state["f"])[:n])
+        n = min(len(hs[0]), len(hs[1]))
+        per = ", ".join(f"{_rel(a, b):.1e}" for a, b in zip(hs[0][:n],
+                                                             hs[1][:n]))
+        print(f"{label}: outers {len(hs[0])}/{len(hs[1])}, history rel "
+              f"difference by outer [{per}]; f after one outer "
+              f"{_rel(*f1):.3e}, at the end {_rel(*fe):.3e}", flush=True)
+
+    def small(eps, coll, solver):
+        m = couette(0.0, 3, 6, (6, 6, 4), coll)
+        m.vc["relaxationTime"] = 0.2 * (1 + eps)
+        m.options["solver"] = solver
+        if solver == "COMET":
+            m.options["innerTolerance"] = 1e-12
+            m.options["innerIterations"] = 200
+        m.init()
+        return m
+
+    for coll, solver in (("BGK", "COMET"), ("ESBGK", "COMET"),
+                         ("ESBGK", "sweep")):
+        run(f"Couette quad_2d(3, 6) Q(6,6,4) {coll} {solver}"
+            + (", inner 1e-12" if solver == "COMET" else "") + ", 2 outers",
+            lambda e, c=coll, s=solver: small(e, c, s), 2)
+    run("Couette quad_2d(3, 10) Q(6,6,4) BGK COMET, 12 outers",
+        lambda e: couette(e, 3, 10, (6, 6, 4), "BGK"), 12)
+    run("Couette demo quad_2d(3, 32) Q(8,8,4) ES-BGK, 20 outers",
+        lambda e: couette(e, 3, 32, (8, 8, 4), "ESBGK"), 20)
+    for dsa in (True, False):
+        run(f"thick quad_2d(48, 3), DSA {'on' if dsa else 'off'}, 8 outers",
+            lambda e, dsa=dsa: thick(e, dsa), 8)
+    def plate(eps):
+        m = KineticModel(jfvm.mesh.build_device_mesh(
+            jfvm.mesh.generate.quad_2d(16, 16)), Quadrature(8, 8, 4))
+        m.options["verbose"] = False
+        m.options["innerTolerance"] = 1e-12
+        m.options["innerIterations"] = 200
+        m.vc["relaxationTime"] = 0.2 * (1 + eps)
+        for s in ("left", "right", "bottom", "top"):
+            m.bc[s].bc_type = "DiffuseWall"
+        m.init()
+        cc = np.asarray(m.mesh.cell_centroid)[: m.mesh.n_interior_cells]
+        m.set_immersed_boundary(
+            (np.abs(cc[:, 0] - 0.5) < 0.25) & (np.abs(cc[:, 1] - 0.5) < 0.1),
+            wall_velocity=(0.2, 0.0, 0.0))
+        return m
+
+    run("immersed plate quad_2d(16, 16) Q(8,8,4) COMET, inner 1e-12, 2 "
+        "outers", plate, 2)
+    rows = []
+    for eps in (0.0, 1e-15):
+        m = KineticModel(jfvm.mesh.build_device_mesh(
+            jfvm.mesh.generate.quad_2d(24, 8, lx=3.0, ly=1.0)),
+            Quadrature(10, 10, 10))
+        m.options["verbose"] = False
+        m.options["collisionModel"] = "ESBGK"
+        m.options["transient"] = True
+        m.options["timeStep"] = 0.5e-2
+        m.vc["relaxationTime"] = 0.2 * (1 + eps)
+        m.bc["top"].bc_type = "DiffuseWall"
+        m.bc["top"]["specifiedYVelocity"] = -0.0297 * 0.2
+        m.bc["bottom"].bc_type = "DiffuseWall"
+        m.bc["left"].bc_type = "Symmetry"
+        m.bc["right"].bc_type = "PressureInlet"
+        m.bc["right"]["specifiedPressure"] = 1.0
+        m.init()
+        h = []
+        for _ in range(2):
+            h += [r[1] for r in m.advance(5)]
+            m.updateTime()
+        rows.append((h, np.asarray(m.state["f"]),
+                     m.getMomentumFluxIntegral("top")))
+    (h0, f0, F0), (h1, f1, F1) = rows
+    n = min(len(h0), len(h1))
+    print(f"damping fallback quad_2d(24, 8) Q(10,10,10), 2 steps: history "
+          f"rel difference by outer [" + ", ".join(
+              f"{_rel(a, b):.1e}" for a, b in zip(h0[:n], h1[:n]))
+          + f"]; f {_rel(f0, f1):.3e}; beam force {_rel(F0, F1):.3e}",
+          flush=True)
 
 
 if __name__ == "__main__":

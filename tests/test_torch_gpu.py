@@ -1227,3 +1227,143 @@ def test_battery_cuda_matches_cpu(cuda, mode):
     for a, b in zip(out_g, out_c):
         assert _rel(a, b) <= 1e-8
     assert _rel(out_g[2], [-20.0 * 5.0 / 96485.33] * 2) <= 1e-8
+
+
+@pytest.mark.parametrize("collision", ["BGK", "ESBGK"])
+def test_kinetic_couette_cuda_matches_cpu(cuda, collision):
+    """The ES-BGK model's COMET Couette (quad_2d(3, 10), Q(6, 6, 4)) with
+    tight inner solves: one outer cuda against cpu (1e-8), then the slip
+    profile after the plateau (1e-6)."""
+    from fvm_tpu_torch.cases import couette_profile, esbgk_couette
+
+    def run(dev):
+        m = esbgk_couette(3, 10, device=dev, quad=(6, 6, 4),
+                          collision=collision, tau=0.2,
+                          options={"innerTolerance": 1e-12,
+                                   "innerIterations": 200})
+        m.advance(1)
+        f1 = m.state["f"][: m.mesh.n_interior_cells].cpu().numpy()
+        m.options["innerTolerance"] = 1e-8
+        m.options["innerIterations"] = 60
+        m._drop_compiled()
+        m.advance(6)
+        return f1, couette_profile(m)[0]
+
+    (f_g, u_g), (f_c, u_c) = _both(run)
+    assert _rel(f_g, f_c) <= 1e-8
+    assert _rel(u_g, u_c) <= 1e-6 and u_g[-1] > 0.05
+
+
+def test_kinetic_thick_dsa_launches_the_kernel(cuda):
+    """The thick DSA case on quad_2d(32, 16) (whose mesh has DIA
+    structure; quad_2d(48, 3)'s fine level is gather-ELL), cuda against
+    cpu: one DSA application on seeded vectors at a seeded state (the two
+    V-cycles, the Woodbury + DSA composition and its transpose; 1e-12 of
+    the largest entry), then one outer with the inner solve at 1e-12 (its
+    first residual and the state after it, 1e-10), the DSA's V-cycles
+    launching dia_stencil in every mode, and the DSA's condensed
+    fine-level operator against the plain version bit for bit."""
+    from fvm_tpu_torch.cases import esbgk_thick
+    from fvm_tpu_torch.kinetic.dsa import DSAPrecond
+    from fvm_tpu_torch.kinetic.esbgk import _KineticOperator
+
+    def run(dev):
+        m = esbgk_thick(32, 16, dsa=True, device=dev)
+        rng = np.random.default_rng(7)
+        f0 = m.state["f"]
+        f = f0 * torch.as_tensor(
+            1.0 + 0.01 * rng.standard_normal(tuple(f0.shape))).to(dev)
+        r = torch.as_tensor(rng.standard_normal(tuple(f0.shape))).to(dev)
+        V = m.mesh.cell_volume[:, None]
+        tau = m.params["tau"][:, None]
+        op = _KineticOperator(m.mesh, m.params["dO"], m.params["dN"],
+                              V / tau)
+        M_T, wE = m._dsa_tuple()[:2]
+        dsa = DSAPrecond(m._woodbury(op, f, V, tau), *m._dsa_tuple())
+        applied = [M_T(r @ wE), dsa.precond_setup(op)(r),
+                   dsa.precond_setup_T(op)(r)]
+        m.options["innerTolerance"] = 1e-12
+        m.options["innerIterations"] = 400
+        m._drop_compiled()
+        dk.reset_launches()
+        h = m.advance(1)
+        f1 = m.state["f"][: m.mesh.n_interior_cells]
+        return ([a.cpu().numpy() for a in applied], h, f1.cpu().numpy(),
+                dk.type_launches(torch.float64), m)
+
+    (ag, hg, fg, lg, m), (ac, hc, fc, _, _) = _both(run)
+    for a, b in zip(ag, ac):
+        assert _rel(a, b) <= 1e-12
+    assert all(lg[mode] > 0 for mode in dk.MODES), lg
+    assert max(hg.trips[0], hc.trips[0]) < 400
+    assert _rel(hg[0][1], hc[0][1]) <= 1e-10 and _rel(fg, fc) <= 1e-10
+    A = m._dsa_tuple()[0].matrix.prepare()
+    assert A.dia is not None
+    x = torch.randn(A.n, dtype=torch.float64, device=cuda)
+    for mode in dk.MODES:
+        b = None if mode == "mv" else x.flip(0)
+        omega = 0.7 if mode == "jacobi" else None
+        y = dk._launch(A.dia.offsets, mode, A.dia_coef, A.diag, x, b, omega)
+        want = dk.dia_stencil_plain(A.dia.offsets, mode, A.dia_coef, A.diag,
+                                    x, b=b, omega=omega)
+        assert torch.equal(y, want)
+
+
+def test_kinetic_sensitivities_cuda_match_cpu(cuda):
+    """solve_tangent and solve_adjoint on the converged BGK Couette
+    (quad_2d(3, 6), Q(6, 6, 4)): cuda against cpu (1e-6), both transposed
+    solves within their 400-trip cap, and the duality on the card
+    (1e-7)."""
+    from fvm_tpu_torch.cases import esbgk_couette
+
+    def run(dev):
+        m = esbgk_couette(3, 6, device=dev, quad=(6, 6, 4),
+                          collision="BGK", tau=0.2)
+        m.advance(12)
+        ni = m.mesh.n_interior_cells
+        dtau = np.random.default_rng(3).standard_normal(ni)
+        tan = m.solve_tangent(param_tangents={"tau": dtau})
+        q = m.quadrature
+        wcx = torch.as_tensor(q.w * q.c[:, 0]).to(dev)
+
+        def J(ff):
+            return torch.sum((ff @ wcx) ** 2)
+
+        g = m.solve_adjoint(J, param_keys=("tau",))
+        f0 = m.state["f"][:ni]
+        dJ = float(torch.func.jvp(J, (f0,), (torch.as_tensor(tan).to(dev),))
+                   [1])
+        return (tan, g["tau"],
+                abs(float(np.dot(g["tau"], dtau)) - dJ) / abs(dJ),
+                int(m.adjoint_stats.iterations))
+
+    (tg, gg, dg, ig), (tc, gc_, _, ic) = _both(run)
+    assert _rel(tg, tc) <= 1e-6 and _rel(gg, gc_) <= 1e-6 and dg <= 1e-7
+    assert max(ig, ic) < 400
+
+
+def test_kinetic_chunk_replay_equals_eager(cuda):
+    """``outerChunk`` (3) replays of the COMET step against the same step
+    (forward-mode products) run eagerly: bit for bit; and an immersed body
+    moved with the same padding keeps the captured chunk."""
+    from fvm_tpu_torch.cases import esbgk_couette, esbgk_ib_plate
+
+    out = []
+    for chunk in (0, 3):
+        m = esbgk_couette(3, 6, device=cuda, quad=(6, 6, 4), collision="BGK",
+                          tau=0.2, options={"outerChunk": chunk,
+                                            "relativeTolerance": 1e-30})
+        if not chunk:
+            m._step = m._build_step("forward")
+        h = m.advance(6)
+        out.append(([r[1] for r in h], m.state["f"]))
+    assert out[0][0] == out[1][0] and torch.equal(out[0][1], out[1][1])
+    m = esbgk_ib_plate(8, device=cuda, quad=(6, 6, 4), pad_faces=40,
+                       options={"outerChunk": 2})
+    m.advance(2)
+    runner = m._runners[("chunk", 2)]
+    cc = m.mesh.cell_centroid[: m.mesh.n_interior_cells].cpu().numpy()
+    moved = (np.abs(cc[:, 0] - 0.4) < 0.25) & (np.abs(cc[:, 1] - 0.5) < 0.1)
+    m.set_immersed_boundary(moved, wall_velocity=(0.2, 0.0), pad_faces=40)
+    h = m.advance(2)
+    assert m._runners[("chunk", 2)] is runner and np.isfinite(h[-1][1])
