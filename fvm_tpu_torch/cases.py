@@ -1460,3 +1460,118 @@ def damping_steps(m, steps: int, outers: int = DAMPING_OUTERS):
         rows.append((len(hist), hist[-1][1],
                      float(m.getMomentumFluxIntegral("top")[1])))
     return rows
+
+
+# ---- the phonon BTE (kinetic/phonon.py) -------------------------------------
+#
+# ``phonon_thick``: tests/test_comet.py:110-156's acoustically thick slab
+# (optical thickness 100 at vg = L = 1): gray, S_N(4, 8), tau 0.01,
+# Isothermal 310 / 300 left / right, Symmetry top and bottom, the inner
+# BiCGStab ``PHONON_THICK_INNER`` trips to 1e-9, ``coarseAcceleration`` =
+# ``dsa``.
+# ``phonon_nongray``: test_comet.py:73-104's two bands (C, vg, tau) on
+# quad_2d(n, n).  ``phonon_two_zone``: tests/test_phonon_walls.py:86-200's
+# two-material slab on the fused-mesh route from a Fluent case: the zones'
+# masks, ``interface_faces_between``, ``make_interface``, per-cell bands,
+# the DMM interface closure, ballistic.
+
+PHONON_T = (310.0, 300.0)
+PHONON_BANDS = [(0.6, 3.0, 0.02), (0.4, 1.0, 0.2)]
+PHONON_THICK_OUTERS = 6
+PHONON_THICK_INNER = 20
+PHONON_MATERIALS = ((1.0, 1.0), (3.0, 1.0))  # (C, vg) left, right
+
+
+def _phonon(dmesh, bands=None, options=None, n_polar=4, n_azimuthal=8,
+            scattering_matrix=None, wall="Symmetry", refl=1.0,
+            T=PHONON_T):
+    from .kinetic import PhononModel
+
+    m = PhononModel(dmesh, n_polar, n_azimuthal, bands=bands,
+                    scattering_matrix=scattering_matrix)
+    m.options["verbose"] = False
+    m.bc["left"].bc_type = "Isothermal"
+    m.bc["left"]["specifiedTemperature"] = T[0]
+    m.bc["right"].bc_type = "Isothermal"
+    m.bc["right"]["specifiedTemperature"] = T[1]
+    for g in ("top", "bottom"):
+        m.bc[g].bc_type = wall
+        if wall == "Reflecting":
+            m.bc[g]["specifiedReflection"] = refl
+    for k, v in (options or {}).items():
+        m.options[k] = v
+    return m
+
+
+def phonon_slab(nx: int, ny: int, device=None, tau: float = 0.1,
+                options=None, **kw):
+    """A phonon slab on quad_2d(nx, ny): Isothermal left and right
+    (``T``, default 310 / 300), ``wall`` top and bottom (Symmetry, or
+    Reflecting at ``refl``, or Adiabatic), gray with relaxation time
+    ``tau`` unless ``bands`` are given, S_N(``n_polar``, ``n_azimuthal``),
+    an optional ``scattering_matrix``; ``options`` set before ``init``."""
+    m = _phonon(build_device_mesh(quad_2d(nx, ny), dtype="float64",
+                                  device=device), options=options, **kw)
+    m.vc["relaxationTime"] = tau
+    m.init()
+    return m
+
+
+def phonon_thick(nx: int, ny: int, dsa: bool = True, device=None):
+    """The thick gray phonon slab on quad_2d(nx, ny), initialised."""
+    return phonon_slab(nx, ny, device, tau=0.01, options={
+        "innerIterations": PHONON_THICK_INNER, "innerTolerance": 1e-9,
+        "coarseAcceleration": dsa})
+
+
+def phonon_profile_error(m) -> float:
+    """The largest distance of the lattice temperature from the diffusion
+    profile 310 - 10 x of the unit slab."""
+    n = m.mesh.n_interior_cells
+    x = m.mesh.cell_centroid[:n, 0].cpu().numpy()
+    return float(np.abs(m.getTemperature()
+                        - (PHONON_T[0] - 10.0 * x)).max())
+
+
+def phonon_nongray(n: int = 16, solver: str = "COMET", device=None):
+    """The two-band phonon slab on quad_2d(n, n) (relative tolerance
+    1e-10), initialised."""
+    return phonon_slab(n, n, device, bands=PHONON_BANDS, options={
+        "solver": solver, "relativeTolerance": 1e-10})
+
+
+def phonon_two_zone(path_or_mesh, device=None, inner: int = 200):
+    """The two-material phonon slab on a case with the cell zones "left"
+    and "right" (a path to a Fluent case, or a host mesh with
+    ``cell_zones``), initialised: the interface ``mid`` between them as a
+    double-shell interface, per-cell (C, vg) ``PHONON_MATERIALS`` of the
+    two zones, ballistic (tau 1e8), the DMM split, COMET without the DSA
+    (per-cell materials skip it), inner BiCGStab ``inner`` trips, relative
+    tolerance 1e-11.  The left zone's cell mask is ``m.left_cells``."""
+    from .io import read_fluent_mesh
+
+    mesh = (read_fluent_mesh(path_or_mesh) if isinstance(path_or_mesh, str)
+            else path_or_mesh)
+    left = mesh.cell_zone_mask("left")
+    right = mesh.cell_zone_mask("right")
+    m2 = mesh.make_interface("mid", mesh.interface_faces_between(left, right),
+                             left_cells=left)
+    (CL, vL), (CR, vR) = PHONON_MATERIALS
+    bands = [(np.where(left, CL, CR), np.where(left, vL, vR), 1e8)]
+    m = _phonon(build_device_mesh(m2, dtype="float64", device=device),
+                bands=bands, options={"relativeTolerance": 1e-11,
+                                      "coarseAcceleration": False,
+                                      "innerIterations": inner})
+    m.init()
+    m.left_cells = left
+    return m
+
+
+def phonon_two_zone_exact(m):
+    """The ballistic closed form of the two-zone slab (the JAX test's
+    module docstring): (theta_L, theta_R) = (310 - 5 t_LR, 300 + 5 t_RL)
+    with the model's interface transmissivities."""
+    t12, t21 = (float(t.reshape(-1)[0]) for t in m._ifc["mid"][:2])
+    hot, cold = PHONON_T
+    half = 0.5 * (hot - cold)
+    return hot - half * t12, cold + half * t21

@@ -77,8 +77,11 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
     included.  So does a ``KineticModel``'s state (f, and f_N1 when
     transient) and its params (tau, dO, dN, the integer ``periodic_src:*``
     and ``refl_idx:*`` tables, ``refl_w:*`` and, after
-    ``set_immersed_boundary``, its ``ib_*`` tables).  New params rebuild the model's step and drop its captured
-    graphs, which read the old ones.
+    ``set_immersed_boundary``, its ``ib_*`` tables); and a
+    ``PhononModel``'s state (e, and e_N1 when transient) and its params
+    (dO, dN, the integer ``refl_idx:*`` and ``refl_w:*`` tables).  New
+    params rebuild the model's step (and its DSA hierarchy) and drop its
+    captured graphs, which read the old ones.
 
     The structures models load the same way: ``StructureModel``'s
     deformation (n, dim), its time levels and plastic strain (n, dim, dim)

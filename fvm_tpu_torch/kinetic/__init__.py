@@ -1,2 +1,3 @@
 from .quadrature import Quadrature
 from .esbgk import KineticModel, KineticBC, KineticVC
+from .phonon import PhononModel, PhononBC, PhononVC

@@ -1564,3 +1564,38 @@ class FlowModel(Model):
     def getPressure(self):
         """Interior-cell pressures as a host numpy array."""
         return self.state["pressure"][: self.mesh.n_interior_cells].cpu().numpy()
+
+    def dumpContinuityMatrix(self, prefix: str) -> None:
+        """Write the current pressure-correction system as MatrixMarket
+        files ``<prefix>.mtx`` / ``<prefix>_rhs.mtx`` (reference:
+        FlowModel_impl.h:1560 dumpContinuityMatrix; read back with
+        ``io.read_matrix_market``): the Rhie-Chow scale vol/aP frozen at the
+        state's momAp, ghost rows identity with zero right side."""
+        from ..io.matrixmarket import write_matrix_market
+
+        mesh = self.mesh
+        dev = mesh.device
+        interior_cells = torch.arange(mesh.n_cells, device=dev) \
+            < mesh.n_interior_cells
+        bnd = torch.arange(mesh.n_faces, device=dev) >= mesh.n_interior_faces
+        rho_f = assembly.cells_to_faces_distance_weighted(mesh,
+                                                          self.params["rho"])
+        vol_over_ap = torch.where(interior_cells,
+                                  mesh.cell_volume / self.state["momAp"], 0.0)
+        voap_f = assembly.cells_to_faces_distance_weighted(
+            mesh, bck.extend_to_ghosts(mesh, vol_over_ap))
+        Df = rho_f * voap_f * mesh.face_e_over_d
+        pres_face = torch.zeros(mesh.n_faces, dtype=torch.bool, device=dev)
+        for g, bc in self._group_bcs():
+            if bc.bc_type == "PressureBoundary":
+                pres_face[mesh.group_faces(g)] = True
+        Df_cont = torch.where(bnd & ~pres_face, 0.0, Df)
+        Ap, rp = assembly.assemble(mesh, FaceFlux(
+            F=self.state["massFlux"], dF_dO=Df_cont, dF_dN=-Df_cont))
+        n_int = mesh.n_interior_cells
+        diag, off, rp = Ap.diag.clone(), Ap.off.clone(), rp.clone()
+        diag[n_int:] = 1.0
+        off[:, n_int:] = 0.0
+        rp[n_int:] = 0.0
+        write_matrix_market(prefix + ".mtx", Ap.replace(diag=diag, off=off),
+                            rp)

@@ -2,7 +2,7 @@
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
         ib,channel,homocase,electric,goldens,structures,transport,ke,
-        battery,charging,kinetic]
+        battery,charging,kinetic,phonon]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -76,6 +76,16 @@ all by default):
   inner solves at 1e-12, 2 outers), the relaxation time scaled: the
   residual histories, the interior distribution after the first outer and
   at the end, and the beam force.
+* ``phonon``: the phonon BTE (``fvm_tpu/kinetic/phonon.py``), the hot
+  wall temperature scaled: the gray slab of
+  ``tests/test_torch_phonon_solve.py`` (quad_2d(8, 4), S_N(2, 4), tau
+  0.1, COMET at the default inner solve and at 1e-12, and Picard), the
+  two-band and the scattering-matrix slabs of
+  ``tests/test_phonon_walls.py`` (quad_2d(10, 6)), the ballistic
+  two-material slab (quad_2d(12, 4) over 2 x 1, DMM) and the thick slab of
+  ``tests/test_comet.py:110-156`` (quad_2d(32, 4) and (64, 4), 6 outers,
+  with and without the DSA): the residual histories, the interior energy
+  after the first outer and at the end.
 
 A port held against these histories cannot be held tighter than this
 spread; the port's parity tests run the Newton and Poiseuille
@@ -267,6 +277,8 @@ def main() -> int:
         _charging()
     if "kinetic" in cases:
         _kinetic(jfvm)
+    if "phonon" in cases:
+        _phonon(jfvm)
     if "newton" not in cases:
         if "poiseuille" in cases:
             _poiseuille(JFlow, jfvm, spread)
@@ -785,6 +797,87 @@ def _kinetic(jfvm):
               f"{_rel(a, b):.1e}" for a, b in zip(h0[:n], h1[:n]))
           + f"]; f {_rel(f0, f1):.3e}; beam force {_rel(F0, F1):.3e}",
           flush=True)
+
+
+def _phonon(jfvm):
+    """The ``phonon`` case (module docstring)."""
+    import fvm_tpu.mesh.metrics as metrics
+    from fvm_tpu.kinetic.phonon import (PhononModel, detailed_balance_correct,
+                                        rta_scattering_matrix, sn_directions)
+
+    def slab(eps, mesh, dirs=(4, 8), opts=None, tau=None, **kw):
+        m = PhononModel(jfvm.mesh.build_device_mesh(mesh), *dirs, **kw)
+        m.options["verbose"] = False
+        for k, v in (opts or {}).items():
+            m.options[k] = v
+        if tau is not None:
+            m.vc["relaxationTime"] = tau
+        m.bc["left"].bc_type = "Isothermal"
+        m.bc["left"]["specifiedTemperature"] = 310.0 * (1 + eps)
+        m.bc["right"].bc_type = "Isothermal"
+        m.bc["right"]["specifiedTemperature"] = 300.0
+        m.bc["top"].bc_type = "Symmetry"
+        m.bc["bottom"].bc_type = "Symmetry"
+        m.init()
+        return m
+
+    def run(label, make, outers):
+        hs, e1, ee = [], [], []
+        for eps in (0.0, 1e-15):
+            m = make(eps)
+            n = m.mesh.n_interior_cells
+            h = [r[1] for r in m.advance(1)]
+            e1.append(np.asarray(m.state["e"])[:n])
+            h += [r[1] for r in m.advance(outers - 1)]
+            hs.append(h)
+            ee.append(np.asarray(m.state["e"])[:n])
+        n = min(len(hs[0]), len(hs[1]))
+        per = ", ".join(f"{_rel(a, b):.1e}" for a, b in zip(hs[0][:n],
+                                                             hs[1][:n]))
+        print(f"{label}: outers {len(hs[0])}/{len(hs[1])}, history rel "
+              f"difference by outer [{per}]; e after one outer "
+              f"{_rel(*e1):.3e}, at the end {_rel(*ee):.3e}", flush=True)
+
+    q = jfvm.mesh.generate.quad_2d
+    for label, opts in (("COMET", {}),
+                        ("COMET inner 1e-12", {"innerTolerance": 1e-12,
+                                               "innerIterations": 300}),
+                        ("Picard", {"solver": "sweep"})):
+        run(f"gray slab quad_2d(8, 4) S_N(2, 4) {label}, 4 outers",
+            lambda e, o=opts: slab(e, q(8, 4), (2, 4), o, 0.1), 4)
+    bands = [(0.6, 3.0, 0.02), (0.4, 1.0, 0.2)]
+    run("two-band slab quad_2d(10, 6), 4 outers",
+        lambda e: slab(e, q(10, 6), bands=bands), 4)
+    M = detailed_balance_correct(
+        rta_scattering_matrix(0.1, D=32)
+        + 0.3 * np.random.default_rng(5).random((32, 32)) / 32,
+        sn_directions(4, 8)[1])
+    run("scattering-matrix slab quad_2d(10, 6), 4 outers",
+        lambda e: slab(e, q(10, 6), opts={"coarseAcceleration": False,
+                                          "innerIterations": 400},
+                       scattering_matrix=M), 4)
+
+    def two(eps):
+        mesh = q(12, 4, lx=2.0, ly=1.0)
+        xc = metrics.compute_geometry(mesh).cell_centroid[
+            : mesh.n_interior_cells, 0]
+        left = xc < 1.0
+        m2 = mesh.make_interface(
+            "mid", mesh.interface_faces_between(left, ~left),
+            left_cells=left)
+        return slab(eps, m2, opts={"coarseAcceleration": False,
+                                   "innerIterations": 200},
+                    bands=[(np.where(left, 1.0, 3.0), 1.0, 1e8)])
+
+    run("two-material slab quad_2d(12, 4), ballistic, 4 outers", two, 4)
+    for nx in (32, 64):
+        for dsa in (True, False):
+            run(f"thick slab quad_2d({nx}, 4), DSA {'on' if dsa else 'off'}"
+                f", 6 outers", lambda e, nx=nx, dsa=dsa: slab(
+                    e, q(nx, 4), opts={"innerIterations": 20,
+                                       "innerTolerance": 1e-9,
+                                       "coarseAcceleration": dsa},
+                    tau=0.01), 6)
 
 
 if __name__ == "__main__":

@@ -1367,3 +1367,140 @@ def test_kinetic_chunk_replay_equals_eager(cuda):
     m.set_immersed_boundary(moved, wall_velocity=(0.2, 0.0), pad_faces=40)
     h = m.advance(2)
     assert m._runners[("chunk", 2)] is runner and np.isfinite(h[-1][1])
+
+
+def test_phonon_thick_dsa_launches_the_kernel(cuda):
+    """The thick phonon slab on quad_2d(32, 16) with the DSA (whose mesh
+    has DIA structure; quad_2d(32, 4)'s fine level is gather-ELL), cuda
+    against cpu: one DSA application on seeded vectors (the two V-cycles, the
+    Woodbury + DSA composition and its transpose; 1e-12 of the largest
+    entry), then one outer with the inner solve at 1e-12 (its first
+    residual and the state after it, 1e-10), the DSA's V-cycles launching
+    dia_stencil in every mode (counted), and the DSA's condensed
+    fine-level operator against the plain version bit for bit."""
+    from fvm_tpu_torch.cases import phonon_thick
+    from fvm_tpu_torch.kinetic.dsa import DSAPrecond
+    from fvm_tpu_torch.kinetic.esbgk import _KineticOperator
+
+    def run(dev):
+        m = phonon_thick(32, 16, dsa=True, device=dev)
+        rng = np.random.default_rng(7)
+        e0 = m.state["e"]
+        e = e0 + torch.as_tensor(rng.standard_normal(tuple(e0.shape))).to(dev)
+        r = torch.as_tensor(rng.standard_normal(tuple(e0.shape))).to(dev)
+        V = m.mesh.cell_volume[:, None]
+        rate = m._rate()
+        op = _KineticOperator(m.mesh, m.params["dO"], m.params["dN"],
+                              V * rate)
+        M_T, wE = m._dsa_tuple()[:2]
+        dsa = DSAPrecond(m._woodbury(op, V, rate), *m._dsa_tuple())
+        applied = [M_T(r @ wE), dsa.precond_setup(op)(r),
+                   dsa.precond_setup_T(op)(r)]
+        m.state["e"] = e
+        m.options["innerTolerance"] = 1e-12
+        m.options["innerIterations"] = 400
+        m._drop_compiled()
+        dk.reset_launches()
+        h = m.advance(1)
+        e1 = m.state["e"][: m.mesh.n_interior_cells]
+        return ([a.cpu().numpy() for a in applied], h, e1.cpu().numpy(),
+                dk.type_launches(torch.float64), m)
+
+    (ag, hg, eg, lg, m), (ac, hc, ec, _, _) = _both(run)
+    for a, b in zip(ag, ac):
+        assert _rel(a, b) <= 1e-12
+    assert all(lg[mode] > 0 for mode in dk.MODES), lg
+    assert max(hg.trips[0], hc.trips[0]) < 400
+    assert _rel(hg[0][1], hc[0][1]) <= 1e-10 and _rel(eg, ec) <= 1e-10
+    A = m._dsa_tuple()[0].matrix.prepare()
+    assert A.dia is not None
+    x = torch.randn(A.n, dtype=torch.float64, device=cuda)
+    for mode in dk.MODES:
+        b = None if mode == "mv" else x.flip(0)
+        omega = 0.7 if mode == "jacobi" else None
+        y = dk._launch(A.dia.offsets, mode, A.dia_coef, A.diag, x, b, omega)
+        want = dk.dia_stencil_plain(A.dia.offsets, mode, A.dia_coef, A.diag,
+                                    x, b=b, omega=omega)
+        assert torch.equal(y, want)
+
+
+def test_phonon_two_band_and_two_zone_cuda_match_cpu(cuda, tmp_path):
+    """The two-band slab (quad_2d(8, 8), COMET to 1e-10) and the two-zone
+    slab read from a written binary f64 Fluent case (quad_2d(12, 12),
+    ballistic, DMM) converged on each device: temperatures 1e-10, the
+    closed form 1e-6, the interface's energy flux balanced."""
+    import sys
+    from pathlib import Path
+
+    from fvm_tpu_torch.cases import (phonon_nongray, phonon_two_zone,
+                                     phonon_two_zone_exact)
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from scripts.fluent_case import two_zone_split, write_fluent_case
+
+    path = str(tmp_path / "two_zone.cas")
+    mesh = quad_2d(12, 12)
+    write_fluent_case(path, mesh, "f64", zones=two_zone_split(mesh))
+
+    def run(dev):
+        m = phonon_nongray(8, device=dev)
+        m.advance(4)
+        z = phonon_two_zone(path, device=dev)
+        z.advance(8)
+        q = [z.getHeatFluxIntegral(g) for g in ("mid:L", "mid:R")]
+        return m.getTemperature(), z.getTemperature(), q, z
+
+    (tg, zg, qg, z), (tc, zc, _, _) = _both(run)
+    assert _rel(tg, tc) <= 1e-10 and _rel(zg, zc) <= 1e-10
+    tL, tR = phonon_two_zone_exact(z)
+    left = z.left_cells
+    assert _rel(zg[left], np.full(left.sum(), tL)) <= 1e-6
+    assert _rel(zg[~left], np.full((~left).sum(), tR)) <= 1e-6
+    assert abs(qg[0] + qg[1]) < 1e-10 * abs(qg[0])
+
+
+def test_phonon_adjoint_duality_on_the_card(cuda):
+    """solve_tangent and solve_adjoint of the converged gray slab
+    (quad_2d(12, 3), S_N(4, 8), tau 0.15): cuda against cpu (1e-8) and the
+    duality on the card (1e-8)."""
+    from fvm_tpu_torch.cases import phonon_slab
+
+    def run(dev):
+        m = phonon_slab(12, 3, dev, tau=0.15, T=(310.0, 290.0),
+                        options={"relativeTolerance": 1e-12})
+        m.advance(10)
+        ni = m.mesh.n_interior_cells
+        dtau = np.random.default_rng(3).standard_normal(m.D)
+        tan = m.solve_tangent(param_tangents={"tau": dtau})
+        xw = m.mesh.cell_centroid[:ni, 0]
+
+        def J(ee):
+            return torch.sum(m.temperature(ee) * xw)
+
+        g = m.solve_adjoint(J, param_keys=("tau",))
+        e0 = m.state["e"][:ni]
+        dJ = float(torch.func.jvp(J, (e0,), (torch.as_tensor(tan).to(dev),))
+                   [1])
+        return tan, g["tau"], abs(float(np.dot(g["tau"], dtau)) - dJ) / abs(dJ)
+
+    (tg, gg, dg), (tc, gc_, dc) = _both(run)
+    assert _rel(tg, tc) <= 1e-8 and _rel(gg, gc_) <= 1e-8
+    assert max(dg, dc) <= 1e-8
+
+
+def test_phonon_chunk_replay_equals_eager(cuda):
+    """``outerChunk`` (2) replays of the phonon COMET step against the same
+    step (forward-mode products) run eagerly: bit for bit."""
+    from fvm_tpu_torch.cases import phonon_slab
+
+    out = []
+    for chunk in (0, 2):
+        m = phonon_slab(12, 3, cuda, T=(310.0, 290.0), n_polar=2,
+                        n_azimuthal=4, options={"outerChunk": chunk,
+                                                "relativeTolerance": 0.0,
+                                                "absoluteTolerance": 0.0})
+        if not chunk:
+            m._step = m._build_step("forward")
+        h = m.advance(4)
+        out.append(([r[1] for r in h], m.state["e"]))
+    assert out[0][0] == out[1][0] and torch.equal(out[0][1], out[1][1])
