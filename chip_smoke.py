@@ -43,7 +43,7 @@ script exits non-zero before the last line):
                 float64 on the card and on the CPU: histories agree; the
                 graph replay equals the eager loop bit for bit under
                 deterministic algorithms;
-  8. setup3d  - the 128^3 float32 coupled 3D cavity built, host seconds per
+  8. setup3d  - the 96^3 float32 coupled 3D cavity built, host seconds per
                 stage (mesh, metrics, device mesh with its cf tables and
                 DIA analysis, models with their LS coefficients and greedy
                 AMG hierarchies: aggregation, level tables; first step),
@@ -54,7 +54,7 @@ script exits non-zero before the last line):
                 bf16} x {(n,), (n, 3)}, and on levels with fallback entries
                 the fused op with its fallback applied;
  10. main3d   - the 3D main path: warm-up + 10 timed outer steps of the
-                128^3 cavity, launches per step by mode, variant and level,
+                96^3 cavity, launches per step by mode, variant and level,
                 gather-ELL products by level, and the device profile; then
                 the graph replay of 10 steps as in phase 5 (residuals within
                 ``GRAPH3D_RTOL`` of the eager loop's: the greedy levels add
@@ -76,7 +76,7 @@ script exits non-zero before the last line):
                 bf16 kernel against its plain version and its bound at the
                 fine level (and the library's bf16 CSR mv, or its error
                 beside the float32 call at the same shape);
- 13. newton   - the Newton endgame (``advanceNewton(4)``) from the 32^2
+ 13. newton   - the Newton endgame (``advanceNewton(3)``) from the 32^2
                 float64 bench cavity after 60 SIMPLE outers, cuda against
                 cpu (the CPU side in two child processes beside the card's
                 runs): one program, chunked (25), chunked with the float32
@@ -87,8 +87,9 @@ script exits non-zero before the last line):
                 and 60 Anderson-accelerated SIMPLE outers;
  14. converge - ``cases.converge_cavity(1024)``, bench's converge mode:
                 float32 SIMPLE replays to the stall, promotion to float64,
-                the mixed-precision Newton endgame (inner solves as graph
-                replays), thermal; seconds per phase, one line per Newton
+                the mixed-precision Newton endgame (one step, its inner
+                solve graph replays capped at one chunk of 240 iterations),
+                thermal; seconds per phase, one line per Newton
                 step, ms per inner iteration, ``dia_stencil`` launches per
                 inner iteration, the idle share of a profiled chunk, peak
                 memory and the time to 1e-6;
@@ -135,8 +136,8 @@ script exits non-zero before the last line):
  19. plate    - the two-material plate (``cases.two_material_plate``: a
                 contact-resistance interface and periodic walls) cuda
                 against cpu at 64 x 16, the closure inside ``outerChunk``
-                replays against the eager outers; at 1,048,576 cells in
-                float64: host set-up by stage, the hierarchy, outers and
+                replays against the eager outers; at quad_2d(1024, 256)
+                (262,144 cells) in float64: host set-up by stage, the hierarchy, outers and
                 seconds to a 1e-10 relative residual, the max abs error
                 against the exact series profile, the Mixed variant's
                 energy balance, the fine level's kernel rows;
@@ -170,9 +171,9 @@ script exits non-zero before the last line):
                 at nx 24, ny_gap 12 (lumped stiffness, w at 0.3 and 0.6
                 V_PI, 1.4 V_PI pulls in), the cantilever at 40 x 6 with
                 inner solves at 1e-12 (deformation, tangent and adjoint in
-                E and their duality, Monte Carlo, two creep steps and the
+                E and their duality, Monte Carlo, a creep step and the
                 von Mises stress), the FSI beam at n 24 and the small
-                models; then the switch at nx 192, ny_gap 64: the lumped
+                models; then the switch at nx 96, ny_gap 32: the lumped
                 stiffness, main()'s bias sweep and the 1.1 V_PI snap-down
                 within time budgets (cut there), s per coupling iteration,
                 ms per electric solve, plate JFNK outer and squeeze-film
@@ -182,14 +183,14 @@ script exits non-zero before the last line):
                 gap's fine-level kernel rows;
  24. struct   - the cantilever UQ at 160 x 24 (converge, tangent, adjoint,
                 Monte Carlo, seconds each), then the capped card-size run
-                (quad_2d(2048, 308), 2 JFNK outers of 12 Krylov trips):
+                (quad_2d(1024, 154), 2 JFNK outers of 12 Krylov trips):
                 ms per outer and per trip, each Jacobian-product mode's ms,
                 the AD products' and block-ELL products' share of a trip,
                 the residual reached, peak memory, a profiled outer;
- 25. motion   - ``MovingMeshModel`` on quad_2d(1024, 1024) (50 sweeps on
+ 25. motion   - ``MovingMeshModel`` on quad_2d(512, 512) (50 sweeps on
                 the card, the rebuild, volChange and the GCL), the fracture
                 source-steady case and the squeeze-film strip at
-                quad_2d(1024, 1024) float64 against their exact fields,
+                quad_2d(512, 512) float64 against their exact fields,
                 with their fine levels' kernel rows;
  26. charging - the charge-transport half of ``ElectricModel`` (injection,
                 capture, Poole-Frenkel emission and trap-band tunneling,
@@ -198,8 +199,8 @@ script exits non-zero before the last line):
                 rows; ``DielectricChargingModel`` on the column stand-in
                 for the absent 1x1x1000.cas (``cases.dielectric_column``)
                 over 2 of the reference script's 100 steps cuda against
-                cpu, then one step of the 16 x 16 membrane of columns
-                (``cases.charging_membrane``, 256,000 cells): s per step,
+                cpu, then one step of the 8 x 8 membrane of columns
+                (``cases.charging_membrane``, 64,000 cells): s per step,
                 coefficient evaluation and Newton solve, Krylov trips per
                 Newton step, peak memory, the potential solve's residual,
                 the averages against the column's, and the internal
@@ -213,11 +214,11 @@ script exits non-zero before the last line):
  28. battery  - ``BatteryModel`` on ``demos/battery_cell.py``'s half cell
                 (``cases.battery_cell``) at 32 x 4 cuda against cpu (two
                 time steps; the tangent and the adjoint in sigma, timed,
-                and their duality), at 256 x 32, the largest fvm_tpu
-                converges (``scripts/battery_scale.py``): s per Newton step
+                and their duality), at 128 x 16 (half the largest fvm_tpu
+                converges, ``scripts/battery_scale.py``): s per Newton step
                 and per time step, the Li balance against -dt I / F,
                 kernels and idle share of a profiled Newton step; and one
-                capped Newton step at quad_2d(1024, 1024);
+                capped Newton step at quad_2d(512, 512);
  29. kinetic  - the ES-BGK kinetic model (``fvm_tpu_torch.kinetic``) in
                 float64: cuda against cpu (the CPU side in three child
                 processes) on the demo Couette (``cases.esbgk_couette``,
@@ -231,14 +232,15 @@ script exits non-zero before the last line):
                 quad_2d(3, 10) with their duality and trips, the immersed
                 moving plate at quad_2d(16, 16); ``outerChunk`` replays
                 against the eager step bit for bit; then the thick case at
-                card size: s per outer and per BiCGStab trip, ms per
+                quad_2d(512, 128): s per outer and per BiCGStab trip, ms per
                 exact-Jacobian product, per Woodbury and per DSA
                 application, ``dia_stencil`` launches per outer by mode and
                 level of the DSA hierarchy, the DSA's fine-level operator
                 against the plain version (bit for bit), peak memory, a
                 profiled outer and the fine level's kernel rows; and the
                 damping stand-in (``cases.esbgk_damping``) at Q(10, 10, 10)
-                on the largest 3:1 mesh within 40 GiB, one time step: s per
+                on quad_2d(192, 64) (a quarter of the largest 3:1 mesh
+                within 40 GiB, for time), one time step: s per
                 step, the beam force and its change, the conservation
                 error, peak memory;
  30. phonon   - the phonon BTE (``PhononModel``) and the mesh I/O
@@ -252,22 +254,46 @@ script exits non-zero before the last line):
                 balance), Reflecting walls at 0.5, the full scattering
                 matrix (energy conserved), the tangent and adjoint with
                 their duality; ``outerChunk`` replays against the eager
-                step bit for bit; the thick gray slab at quad_2d(1536,
-                1536) (PH_CARD_N, the largest square mesh within 40 GiB),
-                3 COMET outers, a cost (it stalls from its first): s per
+                step bit for bit; the thick gray slab at quad_2d(1024,
+                1024) (PH_CARD_N; 1536^2 is the largest within 40 GiB),
+                2 COMET outers, a cost (it stalls from its first): s per
                 outer and per trip, ms per exact-Jacobian product,
                 Woodbury and DSA application, ``dia_stencil`` launches per
                 outer by mode and level, the DSA's fine level against the
                 plain version (bit for bit), peak memory, a profiled
                 outer, the fine level's kernel rows; the same slab at
-                quad_2d(512, 512) (PH_CONV_N) with its inner solve allowed
+                quad_2d(256, 256) (PH_CONV_N) with its inner solve allowed
                 400 trips, converged to the JAX test's assertion (s to
-                solution); then the I/O leg at quad_2d(1024, 1024): the binary
+                solution); then the I/O leg at quad_2d(512, 512): the binary
                 f64 case written and read (s, MB/s, tables against the
                 generated mesh's), the device mesh, 2 outers of the
                 two-zone slab, ``write_vtk``, ``write_netcdf`` and
                 ``read_netcdf`` (s each), a checkpoint round trip (bit for
                 bit);
+ 31. ib       - the immersed boundary's implicit stencil rows, the
+                material-point method, the FMG prolongation and the two IB
+                demos: the 1024^2 float32 flow cylinder (``cases.
+                ib_cylinder``, a generated stand-in): host seconds of
+                ``IBManager.update``, ``interpolation_stencil`` and the
+                widened set-up (DIA analysis, AMG), its widened momentum
+                level against the plain version on its own coefficients
+                (bit for bit, the fallback applied), 10 timed outers eager
+                and as one graph replay (bit for bit with the eager loop
+                under deterministic algorithms: atomics otherwise),
+                ms per outer, launches per outer by mode and level, a
+                profiled replay; the force balance on the converged 48^2
+                float64 cylinder (``cases.ib_force_balance``, 2%); the
+                1024^2 float64 hot cylinder (``cases.ib_hot_cylinder``):
+                converged in 2 outers, the stencil constraint to 1e-6, its
+                widened thermal level bit for bit; the kernel rows of both
+                widened levels (kernel plus fallback) beside the bound, the
+                plain version and the library call on a CSR copy; the MPM:
+                cuda against cpu at 32^2, deterministic replays bit for
+                bit, then 1,048,576 particles on a 1024^2 grid (ms per
+                substep replayed, momentum held, a profiled replay);
+                ``prolong_flow_state`` 256^2 -> 1024^2 (host s, first
+                residual warm against cold); the cantilever stand-in and
+                the adjoint design for a few steps;
 Each phase prints its seconds (``done`` lines).
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
@@ -279,7 +305,8 @@ structures family's in the ``(mems gap, f64)``, ``(fracture, f64)`` and
 ``(squeeze film, f64)`` rows; the remaining models' in the ``(charge
 transport, f64)``, ``(charging electrostatics, f64)`` and ``(ke)`` rows;
 the kinetic DSA's in the ``(kinetic DSA, f64)`` rows; the phonon DSA's
-in the ``(phonon DSA, f64)`` rows)
+in the ``(phonon DSA, f64)`` rows; the widened IB-stencil levels' in the
+``(IB-stencil level)`` and ``(IB-stencil level, f64)`` rows)
 and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
@@ -317,8 +344,10 @@ GRAPH3D_RTOL = 3.5e-6
 U_BF16 = 2.0 ** -8
 BF16_RTOL = 8 * U_BF16
 OPTION_STEPS = 3
-# the 3D counterpart: a 128^3 hex cavity (2,097,152 cells) in float32
-MAIN3D_N = 128
+# the 3D counterpart: a 96^3 hex cavity (884,736 cells) in float32 (128^3,
+# 2,097,152 cells, until the whole script's time limit needed the ~50 s of
+# host set-up and timing it cost over 96^3)
+MAIN3D_N = 96
 SLICE3D_N = 16
 # kernel timing: calls per measurement, and operand copies cycled through
 # (4 x ~36 MB at the 2D fine level, beyond the 50 MB L2)
@@ -342,10 +371,11 @@ HOST_SOURCE = "fvm_tpu_torch/csrc/hostlib.cpp"
 # tests once the entry residual is at round-off (a tight inner solve from
 # there only spends its cap): the outer loop's absoluteTolerance (one
 # program, checked after a step), newtonTargetResidual (chunked, checked
-# before one)
+# before one).  2 Newton steps (4 until phase 31 needed the time, 3 until
+# the whole script's time limit did)
 NEWTON_N = 32
 NEWTON_SIMPLE = 60
-NEWTON_STEPS = 4
+NEWTON_STEPS = 2
 NEWTON_BASE = {"newtonKrylovTolerance": 1e-8, "newtonKrylovIterations": 300,
                "newtonTargetResidual": 1e-9}
 NEWTON_MODES = [
@@ -374,9 +404,33 @@ ANDERSON_STEPS = 60
 # run must end below the float32 floor it started the endgame from
 CONVERGE_NEWTON = 1
 CONVERGE_REACH = None
-# the chunk's replays profiled for its idle share (of its 20; profiling all
-# of them cost ~70 s of host time; 2 until the kinetic phase needed time)
+# the Newton step's inner BiCGStab capped at one chunk of 240 iterations
+# (986 iterations, 29.8 s, to its forcing 0.1 until the whole script's
+# time limit needed the time); None: bench's 4000
+CONVERGE_KRYLOV = 240
+# the chunk's replays timed (of its 20; the whole chunk, 5.6 s, until the
+# whole script's time limit needed the time) and profiled for its idle
+# share (profiling all of them cost ~70 s of host time; 2 until the
+# kinetic phase needed time)
+CONVERGE_TIMED = 4
 CONVERGE_PROFILED = 1
+
+
+_main_mesh = {}
+
+
+def main_mesh(device):
+    """The main path's MAIN_N^2 MAIN_DTYPE quad device mesh, built once and
+    shared by the phases that put bench's cavity on it (a build takes ~5 s
+    of host time; the models on it do not change it)."""
+    key = str(device)
+    if key not in _main_mesh:
+        from fvm_tpu_torch.mesh import build_device_mesh
+        from fvm_tpu_torch.mesh.generate import quad_2d
+
+        _main_mesh[key] = build_device_mesh(quad_2d(MAIN_N, MAIN_N),
+                                            dtype=MAIN_DTYPE, device=device)
+    return _main_mesh[key]
 
 
 def log(phase, msg):
@@ -938,13 +992,13 @@ def gather_ell_timing(shape, dtype, device, mode):
     from fvm_tpu_torch.tools import kernel_bench as kb
 
     cols, mask = shape.graph
-    g = torch.Generator(device="cpu").manual_seed(7)
+    g = torch.Generator(device=device).manual_seed(7)
     K, n = cols.shape
     A = ELLMatrix(
-        diag=(torch.rand(n, generator=g, dtype=torch.float64) + 4.0).to(
-            device, dtype),
-        off=torch.randn((K, n), generator=g, dtype=torch.float64).to(
-            device, dtype),
+        diag=(torch.rand(n, generator=g, dtype=torch.float64, device=device)
+              + 4.0).to(dtype),
+        off=torch.randn((K, n), generator=g, dtype=torch.float64,
+                        device=device).to(dtype),
         cols=cols, mask=mask)
     x, b = kb.random_vectors(n, 1, dtype, device, seed=8)
     fn = ((lambda: A.jacobi_step(x, b, 0.7)) if mode == "jacobi"
@@ -1128,13 +1182,12 @@ def bf16_main_phase(device, n_fine, offsets, errors):
     the bf16 kernel at the fine level beside its bound.  Returns the
     ``kernels`` rows of the bf16 modes this path launches."""
     import torch
-    from fvm_tpu_torch.cases import coupled_cavity, coupled_step, coupled_steps
+    from fvm_tpu_torch.cases import cavity_models, coupled_step, coupled_steps
     from fvm_tpu_torch.ops import dia_kernel as dk
 
     k = TIMED_STEPS
     t0 = time.time()
-    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE,
-                                   amg_precision="bf16")
+    flow, thermal = cavity_models(main_mesh(device), amg_precision="bf16")
     for _ in range(WARMUP_STEPS):
         coupled_step(flow, thermal)
     torch.cuda.synchronize()
@@ -1397,7 +1450,8 @@ def _newton_checks(device, children):
 
 def converge_phase(device, kernels, result=None):
     """``cases.converge_cavity(MAIN_N)`` on the card with at most
-    ``CONVERGE_NEWTON`` Newton steps: bench's converge mode (float32 SIMPLE
+    ``CONVERGE_NEWTON`` Newton steps of at most ``CONVERGE_KRYLOV`` inner
+    iterations: bench's converge mode (float32 SIMPLE
     to the stall, promotion, the mixed-precision Newton endgame, 20 float64
     thermal steps), counters reset just before it; it must reach
     ``CONVERGE_REACH`` (None: below the float32 floor it promoted at).
@@ -1407,7 +1461,7 @@ def converge_phase(device, kernels, result=None):
     converge_cavity's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from fvm_tpu_torch.cases import NEWTON_CHUNK, converge_cavity
+    from fvm_tpu_torch.cases import NEWTON_CHUNK, NEWTON_KIT, converge_cavity
     from fvm_tpu_torch.ops import dia_kernel as dk
 
     torch.cuda.synchronize()
@@ -1417,7 +1471,8 @@ def converge_phase(device, kernels, result=None):
     t0 = time.time()
     res = converge_cavity(MAIN_N, device=device, newton_steps=CONVERGE_NEWTON,
                           models=models,
-                          log=lambda msg: log("converge", msg))
+                          log=lambda msg: log("converge", msg),
+                          krylov_iterations=CONVERGE_KRYLOV or NEWTON_KIT)
     wall = time.time() - t0
     if result is not None:
         result.update(res)
@@ -1453,30 +1508,31 @@ def converge_phase(device, kernels, result=None):
     log("converge", "dia_stencil launches in the converge run: " + "; ".join(
         f"{dk.type_tag(t)} " + ", ".join(f"{m} {v}" for m, v in d.items())
         for t, d in launches.items()))
-    # the device idle share of a chunk: its replays timed, and
-    # CONVERGE_PROFILED of them profiled (the profiler's own cost grows
-    # with the kernels it records, ~25,000 a replay)
+    # the device idle share of a chunk: CONVERGE_TIMED of its replays
+    # timed, and CONVERGE_PROFILED of them profiled (the profiler's own
+    # cost grows with the kernels it records, ~25,000 a replay)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    inner.run_chunk(0.1)
+    for _ in range(CONVERGE_TIMED):
+        inner.trips.replay()
     torch.cuda.synchronize()
-    chunk_ms = 1e3 * (time.perf_counter() - t1)
+    replay_ms = 1e3 * (time.perf_counter() - t1) / CONVERGE_TIMED
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(CONVERGE_PROFILED):
             inner.trips.replay()
         torch.cuda.synchronize()
-    part_ms = chunk_ms * CONVERGE_PROFILED / inner.n_replays
+    part_ms = replay_ms * CONVERGE_PROFILED
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     top = rows[:8]
     idle = (f"{busy:.3f} ms in {CONVERGE_PROFILED} profiled replays, "
-            f"{part_ms:.3f} ms of the unprofiled chunk's time "
+            f"{part_ms:.3f} ms of unprofiled replays' time "
             f"({100 - 100 * busy / part_ms:.1f}% idle; the profiler's own "
             f"cost can make this negative)" if busy else
             "not measured (no device events)")
-    log("converge", f"one chunk ({inner.chunk} iterations, "
-        f"{inner.n_replays} replays): {chunk_ms:.3f} ms unprofiled; device "
-        f"busy {idle}")
+    log("converge", f"{CONVERGE_TIMED} of a chunk's {inner.n_replays} "
+        f"replays ({inner.chunk} iterations a chunk): {replay_ms:.3f} ms a "
+        f"replay unprofiled; device busy {idle}")
     for ms, n, key in top:
         log("converge", f"  {ms:9.3f} ms {n:7d} calls  {key[:90]}")
     log("converge", f"peak device memory {peak:.3f} GiB")
@@ -1884,8 +1940,13 @@ def electrostatics_phase(device, suite, errors, smi):
 # device mesh): FAMILY_OUTERS[family] eager coupled outers after one
 # warm-up outer (a SPIKE outer takes seconds), then one outer as a CUDA
 # graph replay (bit for bit against the eager outer under deterministic
-# algorithms: the condensation's index_add adds with atomics)
-FAMILY_OUTERS = {"ILU0": 2, "SPIKE": 1}
+# algorithms: the condensation's index_add adds with atomics); ILU0 2
+# until phase 31 needed the time
+FAMILY_OUTERS = {"ILU0": 1, "SPIKE": 1}
+# the card-size runs' pressure and thermal BiCGStab caps (the family's own
+# is 200): a SPIKE outer spends all 200 of both (~4.7 s eager, 15 s to
+# capture), so its runs stop at 50, for the whole script's time limit
+FAMILY_CARD_ITERATIONS = {"ILU0": 200, "SPIKE": 50}
 FAMILY_PROFILED = ("ILU0",)
 FAMILY_PROFILE_REPS = 20
 # cuda against cpu at 64^2 float64 over 3 outers (10 until the remaining
@@ -1900,6 +1961,10 @@ FAMILY_SLICE_OUTERS = 3
 PLATE_ATOL = 1e-6
 PLATE_BALANCE = 1e-8
 PLATE_SLICE = (64, 16)
+# the card-size plate: quad_2d(1024, 256) (cases.PLATE_NX x PLATE_NY,
+# 2048 x 512, until the whole script's time limit needed the ~20 s of
+# host set-up it cost)
+PLATE_CARD = (1024, 256)
 PLATE_SLICE_RTOL = 1e-8
 # phase 20: the slip-wall Couette flow of tests/test_flow.py:105, its first
 # 60 outers (they move by 6e-13 under a 1e-15 change of the viscosity on
@@ -2146,22 +2211,22 @@ def families_phase(device, errors, smi):
     from torch.profiler import ProfilerActivity, profile
     from fvm_tpu_torch import cases
     from fvm_tpu_torch.cases import coupled_step
-    from fvm_tpu_torch.mesh import build_device_mesh
-    from fvm_tpu_torch.mesh.generate import quad_2d
     from fvm_tpu_torch.ops import dia_kernel as dk
 
     t0 = time.perf_counter()
-    dmesh = build_device_mesh(quad_2d(MAIN_N, MAIN_N), dtype=MAIN_DTYPE,
-                              device=device)
+    dmesh = main_mesh(device)
     torch.cuda.synchronize()
-    log("family", f"{MAIN_N}^2 {MAIN_DTYPE} device mesh (both families) "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log("family", f"{MAIN_N}^2 {MAIN_DTYPE} device mesh (both families; "
+        f"phase 3's) in {time.perf_counter() - t0:.2f} s")
     row = None
     for family in ("ILU0", "SPIKE"):
         t_phase = time.perf_counter()
         t0 = time.perf_counter()
         flow, thermal = cases.cavity_models(
             dmesh, solver=functools.partial(cases.family_solver, family))
+        for m, key in ((flow, "pressureLinearSolver"),
+                       (thermal, "linearSolver")):
+            m.options[key].nMaxIterations = FAMILY_CARD_ITERATIONS[family]
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         outers = FAMILY_OUTERS[family]
@@ -2309,11 +2374,12 @@ def plate_phase(device, errors, smi):
 
     rows = []
     for walls in ("periodic", "mixed"):
-        t, secs = cases.two_material_plate(device=device, walls=walls)
+        t, secs = cases.two_material_plate(device=device, nx=PLATE_CARD[0],
+                                           ny=PLATE_CARD[1], walls=walls)
         dm = t.mesh
         amg = t.options["linearSolver"].preconditioner
         shapes = kb.level_shapes(amg, dm)
-        log("plate", f"{walls}: quad_2d({cases.PLATE_NX}, {cases.PLATE_NY})"
+        log("plate", f"{walls}: quad_2d({PLATE_CARD[0]}, {PLATE_CARD[1]})"
             f" float64, {dm.n_interior_cells} cells, {dm.n_cells} rows; "
             f"host seconds " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in secs.items())
@@ -2715,13 +2781,13 @@ def cavity_sensitivity_phase(device, state, smi):
     start from (phase 5's; None: the same number of steps from rest);
     returns this phase's rows."""
     import torch
-    from fvm_tpu_torch.cases import coupled_cavity
+    from fvm_tpu_torch.cases import cavity_models
     from fvm_tpu_torch.interop import load_model_state
     from fvm_tpu_torch.linear.base import LinearSolver
     from fvm_tpu_torch.ops import dia_kernel as dk
 
     cavity_gates(device)
-    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
+    flow, thermal = cavity_models(main_mesh(device))
     del thermal
     if state is None:  # alone (scripts/smoke_phases.py)
         for _ in range(WARMUP_STEPS + 2 * TIMED_STEPS):
@@ -2804,8 +2870,11 @@ def cavity_sensitivity_phase(device, state, smi):
 # cuda-against-cpu gates (the CPU side in a child process, one thread,
 # beside the card's work), then the card-size runs
 MEMS_GATE = (24, 12)  # tests/test_mems.py's switch
-MEMS_CARD = (192, 64)  # the largest plate fvm_tpu converges (scripts/
-# structures_scale.py), at the demo's gap-cell aspect ratio of ~33
+# the largest plate fvm_tpu converges is nx 192, ny_gap 64 (scripts/
+# structures_scale.py), at the demo's gap-cell aspect ratio of ~33; the
+# run holds half of it (192 x 64 until the whole script's time limit
+# needed the time)
+MEMS_CARD = (96, 32)
 MEMS_SWEEP = tuple(float(f) for f in np.linspace(0.2, 1.6, 8))  # main()
 MEMS_SNAP_V = 1.1  # x V_PI, the demo's transient snap-down
 MEMS_SNAP_STEPS = 160
@@ -2816,14 +2885,16 @@ CANT_GATE = (40, 6)
 CANT_GATE_SAMPLES = 1
 CANT_CREEP = {"creep": True, "creepConstant": 1e-4, "creepExponent": 1.0,
               "yieldStress": 1e6}
-CANT_CREEP_STEPS = 2  # 3 until the kinetic phase needed the time
+CANT_CREEP_STEPS = 1  # 3, then 2, until phases 29 and 31 needed the time
 CANT_UQ = (160, 24)  # the largest cantilever fvm_tpu converges
 CANT_UQ_SAMPLES = 1
-CANT_CAP = (2048, 308)  # 630,784 cells, capped
+# 157,696 cells, capped (2048 x 308, 630,784 cells, until the whole
+# script's time limit needed the time)
+CANT_CAP = (1024, 154)
 CANT_CAP_OUTERS = 2
 CANT_CAP_TRIPS = 12
 FSI_GATE_N = 24
-MOTION_N = 1024
+MOTION_N = 512  # 1024 until the whole script's time limit needed the time
 MOTION_SWEEPS = 50
 GATE_RTOL = 1e-8
 GATE_PARTS = ("mems", "rest")  # one CPU child each
@@ -2960,12 +3031,16 @@ def tight_jfnk(m):
 # of their phase (``start_early``), by call
 _children = []
 _early = {}
+# the children's niceness: the process that drives the card is host-bound
+# (its launches are the critical path), the children have slack
+CHILD_NICE = 10
 
 
 def spawn_cpu(call: str, threads: int = 1):
-    """``chip_smoke.<call>`` in a child process, its result printed as JSON
-    (the CPU side of a cuda-against-cpu gate, run beside the card's); the
-    child ``start_early`` started for the same call, if there is one."""
+    """``chip_smoke.<call>`` in a child process at niceness CHILD_NICE, its
+    result printed as JSON (the CPU side of a cuda-against-cpu gate, run
+    beside the card's); the child ``start_early`` started for the same
+    call, if there is one."""
     import atexit
     import os
     from pathlib import Path
@@ -2976,8 +3051,8 @@ def spawn_cpu(call: str, threads: int = 1):
     if not _children:
         atexit.register(kill_children)
     child = subprocess.Popen(
-        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
-         f"chip_smoke.{call}))"],
+        [sys.executable, "-c", f"import os; os.nice({CHILD_NICE}); import "
+         f"json, chip_smoke; print(json.dumps(chip_smoke.{call}))"],
         cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
         text=True, env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
     _children.append(child)
@@ -3531,10 +3606,13 @@ def motion_phase(device, smi):
 CHARGE_GATE_N = 1000  # the column stand-in for the absent 1x1x1000.cas
 # of the reference script's 100 steps: cut by time (~2,300 Krylov trips a
 # step: 8 s a step on one CPU thread, 5.7 s on the card; 3 until the
-# kinetic phase needed the time)
+# kinetic phase needed the time; the membrane's check compares against the
+# column's first CHARGE_MEMBRANE_STEPS, so at least 2)
 CHARGE_GATE_STEPS = 2
-CHARGE_MEMBRANE = (16, 16)  # columns of the card-size membrane
-CHARGE_MEMBRANE_STEPS = 1  # 21 s a step on the card
+# columns of the card-size membrane (16 x 16, 256,000 cells, until the
+# whole script's time limit needed its ~30 s: 21 s a step on the card)
+CHARGE_MEMBRANE = (8, 8)
+CHARGE_MEMBRANE_STEPS = 1
 # the membrane's averages against the column's, each on its own scale.
 # Its internal potential solve (the default BiCGStab(AMG) at 1e-10, 50
 # iterations, as in fvm_tpu) stops at its cap at 7.5e-5 of its first
@@ -3556,9 +3634,12 @@ KE_STEPS = 2
 KE_OUTERS = 3
 BATTERY_GATE = (32, 4)  # demos/battery_cell.py's main()
 BATTERY_GATE_STEPS = 2
-BATTERY_CARD = (256, 32)  # the largest cell fvm_tpu converges
+# the largest cell fvm_tpu converges is 256 x 32 (a step 15.5 s on the
+# card); the run holds 128 x 16, and caps the 512^2 cell (1024^2,
+# 1,048,576 cells, until the whole script's time limit needed the time)
+BATTERY_CARD = (128, 16)
 BATTERY_CARD_STEPS = 1
-BATTERY_CAP = (1024, 1024)  # 1,048,576 cells, capped
+BATTERY_CAP = (512, 512)
 BATTERY_CAP_TRIPS = 20
 BATTERY_PROFILE_TRIPS = 4
 MODEL_PARTS = ("charging", "rest")  # one CPU child each
@@ -3863,8 +3944,7 @@ def ke_phase(device, smi):
     check_gates("ke", gpu["ke"], cpu["ke"], ("k", "eps", "mu_w"))
 
     t0 = time.perf_counter()
-    flow, thermal = cases.coupled_cavity(MAIN_N, device=device,
-                                         dtype=MAIN_DTYPE)
+    flow, thermal = cases.cavity_models(main_mesh(device))
     for _ in range(WARMUP_STEPS):
         cases.coupled_step(flow, thermal)
     cases.coupled_steps(flow, thermal, KE_CARD_FLOW)
@@ -4066,15 +4146,20 @@ KIN_IB_RTOL = 1e-8
 KIN_CHUNK = (2, 2, 10)
 KIN_PARTS = ("thick", "apply", "rest")  # one CPU child each
 # the largest quad_2d(4k, k) within KIN_PEAK_GIB (k a multiple of 8): 41.24
-# GiB at quad_2d(1024, 256), 37.71 here (NVIDIA H100 80GB HBM3, 700.00 W)
-KIN_THICK_CARD = (992, 248)
+# GiB at quad_2d(1024, 256), 37.71 at (992, 248) (NVIDIA H100 80GB HBM3,
+# 700.00 W); the run holds quad_2d(512, 128), about a quarter of those
+# cells (its 2 outers took ~13 s at (992, 248), which the whole script's
+# time limit no longer had)
+KIN_THICK_CARD = (512, 128)
 KIN_THICK_OUTERS = 2
 # the largest 3:1 quad_2d measured within KIN_PEAK_GIB: 18.13 GiB at
 # quad_2d(384, 128); quad_2d(576, 192) ran out of the card's memory in its
 # first outer (72.8 GiB allocated, 46.7 of them the graph-replayed
-# product's private pool; NVIDIA H100 80GB HBM3, 700.00 W)
-KIN_DAMP_CARD = (384, 128)
-KIN_DAMP_STEPS = 1  # of main()'s 40 (~19.5 s a step)
+# product's private pool; NVIDIA H100 80GB HBM3, 700.00 W).  The run
+# holds quad_2d(192, 64), a quarter of those cells (a step at (384, 128)
+# took ~19.5 s, which the whole script's time limit no longer had)
+KIN_DAMP_CARD = (192, 64)
+KIN_DAMP_STEPS = 1  # of main()'s 40
 KIN_PEAK_GIB = 40.0
 KIN_REPS = 5  # timed applications of the product and the preconditioners
 # the profiled outer's BiCGStab trips (of its 60): the profiler's own cost
@@ -4565,30 +4650,35 @@ PH_SENS_RTOL = 1e-8
 PH_CHUNK = (2, 4)  # (outerChunk, outers) of the replay against eager
 PH_PARTS = ("thick", "rest")  # one CPU child each
 # the thick gray slab at card size: the largest quad_2d(n, n) within
-# KIN_PEAK_GIB, 3 COMET outers with the DSA, a cost: from quad_2d(128,
+# KIN_PEAK_GIB, 2 COMET outers with the DSA (3 until phase 31 needed the
+# time), a cost: from quad_2d(128,
 # 128) its 20-trip inner solve finds nothing better than zero in both
 # packages (scripts/phonon_scale.py --square).  Its peak above what was
 # held before, one outer each: 0.886 GiB at quad_2d(256, 256), 4.256 at
 # (512, 512), 16.856 at (1024, 1024), 33.644 at (1448, 1448), ~n^2: ~37.9
-# here (scripts/phonon_peak.py; NVIDIA H100 80GB HBM3, 700.00 W)
-PH_CARD_N = 1536
-PH_CARD_OUTERS = 3
+# here (scripts/phonon_peak.py; NVIDIA H100 80GB HBM3, 700.00 W).  The run
+# holds quad_2d(1024, 1024) (1536 until the whole script's time limit
+# needed its ~15 s of host set-up and outers)
+PH_CARD_N = 1024
+PH_CARD_OUTERS = 2
 # the same slab where it converges: its inner solve allowed PH_CONV_INNER
 # trips (70-146 a solve from quad_2d(64, 64) to (256, 256) on the CPU,
 # where both packages converge: scripts/phonon_scale.py --square --inner
 # 400), held to the JAX test's assertion (ratio < 5e-7, T within 0.3 K):
 # 2 outers, 321 + 190 trips, 12.93 s at quad_2d(512, 512); quad_2d(1024,
 # 1024) took 3 outers of 400 trips, 62.93 s (scripts/phonon_peak.py
-# --inner 400 --outers 6; NVIDIA H100 80GB HBM3, 700.00 W)
-PH_CONV_N = 512
+# --inner 400 --outers 6; NVIDIA H100 80GB HBM3, 700.00 W).  The run holds
+# quad_2d(256, 256), where the inner solve needs fewer trips (time)
+PH_CONV_N = 256
 PH_CONV_INNER = 400
 # the I/O leg: the two-zone case at quad_2d(n, n) written as a binary f64
 # case, read back, 2 COMET outers of its ballistic slab from the linear
 # wall-to-wall temperature, the inner solve cut to PH_IO_INNER trips (of
 # the case's 200): without the DSA its inner BiCGStab finds nothing better
 # than zero at this size within 200 trips either (20.45 s for 2 outers,
-# NVIDIA H100 80GB HBM3, 700.00 W), so the outers time its cost
-PH_IO_N = 1024
+# NVIDIA H100 80GB HBM3, 700.00 W), so the outers time its cost;
+# quad_2d(1024, 1024) until the whole script's time limit needed the time
+PH_IO_N = 512
 PH_IO_OUTERS = 2
 PH_IO_INNER = 20
 
@@ -5020,6 +5110,637 @@ def phonon_phase(device, smi):
     return rows
 
 
+# ---- phase 31: the immersed boundary's stencil rows, the material-point
+# method, the FMG prolongation and the IB demos (geom/*, models/fmg.py,
+# the cases of ROADMAP queue 1 item 9b)
+# the flow cylinder (cases.ib_cylinder, a generated stand-in) at card size
+# in float32: IB_TIMED outers eager, then the same as one graph replay
+IB_N = 1024
+IB_TIMED = 10
+# the force balance on the fluid region (cases.ib_force_balance) after
+# IB_FORCE[1] outers of the float64 cylinder at IB_FORCE[0]^2, replayed in
+# chunks of IB_FORCE[2]: within IB_FORCE_RTOL of the boundary flux's scale
+# (on the CPU: 8e-3 at 64^2 after 300 outers, 2e-3 after 400; 1e-3 at
+# 48^2 after 600; 3e-4 at 24^2 after 250; on the card 2.2e-3 at 64^2
+# after 400)
+IB_FORCE = (48, 300, 100)
+IB_FORCE_RTOL = 2e-2
+# the thermal stencil case (cases.ib_hot_cylinder, tests/test_ibm.py:232)
+# at card size in float64: converged in 2 outers, the constraint held
+IB_HOT_N = 1024
+IB_HOT_RATIO = 1e-8
+IB_HOT_CONSTRAINT = 1e-6
+# the MPM: the two-block collision (cases.mpm_block) on a 1024^2 grid, two
+# 256 x 512-cell blocks (512^2 cells) at 4 particles a cell: 1,048,576
+# particles, float64, MPM_SUBSTEPS substeps of MPM_DT a replay; its gate
+# cuda against cpu at MPM_GATE_N^2 (P2G's index_add adds with atomics on
+# the card), and two deterministic card runs bit for bit
+MPM_CARD = (1024, (256, 512))
+MPM_SUBSTEPS = 20
+MPM_DT = 1.0e-4
+MPM_GATE_N = 32
+MPM_GATE_RTOL = 1e-12
+# the prolongation from a 256^2 cavity after FMG_OUTERS replayed outers
+# onto bench's 1024^2 cavity
+FMG_N = (256, 1024)
+FMG_OUTERS = 100
+# the cantilever stand-in at the demo's own cell size, (steps, outers)
+CANT_RUN = (3, 15)
+# demos/adjoint_design.py: (n, iterations)
+DESIGN_RUN = (128, 3)
+# the IB kernels rows' tags
+IB_ROW = " (IB-stencil level)"
+IB_ROW64 = " (IB-stencil level, f64)"
+
+
+def record_system(model, key):
+    """The first (A, b) the model's ``key`` solver gets in one eager
+    outer (the step rebuilt around a recording solve), A prepared."""
+    solver = model.options[key]
+    inner = solver.solve_fn
+    got = []
+
+    def solve_fn(A, b, x0):
+        if not got:
+            got.append((A, b))
+        return inner(A, b, x0)
+
+    solver.solve_fn = solve_fn
+    model._drop_compiled()
+    try:
+        model.advance(1)
+    finally:
+        del solver.solve_fn
+        model._drop_compiled()
+    A, b = got[0]
+    return A.prepare(), b
+
+
+def widened_check(label, A, b, errors):
+    """The widened level's fused op on the card: each variant against the
+    plain version on the level's own coefficients, the stencil alone and
+    with its fallback entries applied (deterministic: the fallback's
+    index_add adds with atomics), (n,) and (n, 2), max abs error 0."""
+    import torch
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops.dia import apply_fallback
+
+    d = A.dia
+    checks = 0
+    for m in (1, 2):
+        x = torch.linspace(-1.0, 1.0, A.n * m, dtype=A.diag.dtype,
+                           device=A.diag.device).reshape(
+                               (A.n,) if m == 1 else (A.n, m))
+        bb = (b[:, :m].reshape(x.shape) if b.ndim == 2 else
+              b if m == 1 else torch.stack([b, -b], 1)).contiguous()
+        for mode in dk.MODES:
+            omega = 0.7 if mode == "jacobi" else None
+            bm = None if mode == "mv" else bb
+            y_ref = dk.dia_stencil_plain(d.offsets, mode, A.dia_coef, A.diag,
+                                         x, b=bm, omega=omega)
+            for variant in dk.variants(A.diag.dtype):
+                y = dk._launch(d.offsets, mode, A.dia_coef, A.diag, x, bm,
+                               omega, variant=variant)
+                with deterministic():
+                    pair = [apply_fallback(t, mode, A.diag, x, omega,
+                                           d.fb_rows, d.fb_cols,
+                                           A.dia_fb_vals) for t in (y, y_ref)]
+                torch.cuda.synchronize()
+                for got, want in ((y, y_ref), pair):
+                    err = float((got - want).abs().max())
+                    if not (bool(torch.isfinite(got).all()) and err == 0.0):
+                        raise AssertionError(
+                            f"dia_stencil {variant} disagrees at {label}: "
+                            f"m={m} {mode}: max abs err {err:.3e}")
+                    key = (str(A.diag.dtype).split(".")[-1], variant, mode)
+                    errors[key] = max(errors.get(key, 0.0), err)
+                    checks += 1
+    log("ib", f"{label}: n={A.n} offsets={tuple(d.offsets)} + "
+        f"{int(d.fb_rows.shape[0])} fallback entries: {checks} checks on "
+        f"its own coefficients (m x modes x variants x {{stencil, with "
+        f"fallback}}), max abs err 0 ok")
+
+
+def csr_with_fallback(A):
+    """A widened DIA level (its coefficients and fallback entries) as one
+    torch CSR tensor."""
+    import torch
+
+    d = A.dia
+    base = csr_copy(d.offsets, A.dia_coef, A.diag).to_sparse_coo()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        coo = torch.sparse_coo_tensor(
+            torch.cat([base.indices(), torch.stack([d.fb_rows, d.fb_cols])],
+                      1),
+            torch.cat([base.values(), A.dia_fb_vals]), base.shape).coalesce()
+        return coo.to_sparse_csr()
+
+
+def widened_rows(tag, A, b, cases_, launches, errors):
+    """The widened level's fused op (the kernel, then the fallback's
+    scatter-add: what the solves run), its plain version and the library
+    call on a CSR copy with the fallback entries, per (mode, m), beside
+    the bound (the stencil's bytes and operations, plus the fallback
+    entries' value, row and column read once, x gathered and y updated
+    once each); the ``kernels`` rows of the modes in ``launches``."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops.dia import apply_fallback, fused_apply
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    d, n = A.dia, A.n
+    item = A.diag.element_size()
+    nfb = int(d.fb_rows.shape[0])
+    fb = dict(fb_rows=d.fb_rows, fb_cols=d.fb_cols, fb_vals=A.dia_fb_vals)
+    dtype_name = str(A.diag.dtype).split(".")[-1]
+    csr = csr_with_fallback(A)
+    out = []
+    for mode, m in cases_:
+        omega = 0.7 if mode == "jacobi" else None
+        sets = []
+        for k in range(TIMING_COPIES):
+            x, bb = kb.random_vectors(n, m, A.diag.dtype, A.diag.device,
+                                      seed=50 + k)
+            sets.append((x, None if mode == "mv" else bb))
+        kern = [lambda s=s: fused_apply(d.offsets, A.diag, A.dia_coef, s[0],
+                                        b=s[1], omega=omega, mode=mode, **fb)
+                for s in sets]
+        plain = [lambda s=s: apply_fallback(
+            dk.dia_stencil_plain(d.offsets, mode, A.dia_coef, A.diag, s[0],
+                                 b=s[1], omega=omega), mode, A.diag, s[0],
+            omega, d.fb_rows, d.fb_cols, A.dia_fb_vals) for s in sets]
+        b_ms, _, nbytes, nops = kb.bound(n, m, len(d.offsets), mode, item)
+        nbytes += nfb * (item + 16 + 2 * m * item)
+        nops += nfb * m * (2 + (2 if mode == "jacobi" else 0))
+        bound_ms, bound_by = kb._limit(nbytes, nops)[:2]
+        label = f"dia_stencil {mode}{tag} n={n} m={m} {dtype_name}"
+        ms = replay_ms(kern, bound_ms, label)
+        plain_ms = replay_ms(plain, bound_ms, f"plain {label}")
+        library_ms = None
+        if mode in LIBRARY_CALL:
+            libs = [library_call(mode, csr, s[0], s[1]) for s in sets]
+            got, want = libs[0](), plain[0]()
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            if not err <= LIBRARY_RTOL[dtype_name]:
+                raise AssertionError(f"{library_name(mode, m)} disagrees "
+                                     f"with the plain {mode}{tag}: rel err "
+                                     f"{err:.3e}")
+            library_ms = replay_ms(libs, bound_ms, f"library {label}")
+        log("timing", f"dia_stencil {mode}{tag} ({dk.dispatch(n, A.diag.dtype)}"
+            f", kernel + fallback) n={n} m={m} D={len(d.offsets)} + {nfb} "
+            f"fallback {dtype_name}: graph replay {ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B; {nops} flop), "
+            f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.5f} ms; "
+            + ("library: none for jacobi (no single call)"
+               if library_ms is None else
+               f"{library_name(mode, m)} CSR {library_ms:.5f} ms"))
+        if not launches.get(mode):
+            log("timing", f"dia_stencil {mode}{tag}: not launched at this "
+                f"level, so no kernels row")
+            continue
+        out.append({
+            "name": f"dia_stencil.{mode}{tag}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": launches[mode],
+            "max_abs_err": max(v for (dt, _, md), v in errors.items()
+                               if md == mode and dt == dtype_name),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
+    return out
+
+
+def launches_at(rows, tag):
+    """dia_stencil launches since the last reset at ``rows`` rows of type
+    ``tag``, by mode."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+
+    out = {m: 0 for m in dk.MODES}
+    for (t, _, mode, n, _), v in dk.dia_stencil.shapes.items():
+        if t == tag and n == rows:
+            out[mode] += v
+    return out
+
+
+def by_level(per=1):
+    """dia_stencil launches since the last reset by (type, mode, rows, D),
+    divided by ``per``; and the gather-ELL products by (mode, rows)."""
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops import ell
+
+    agg = {}
+    for (t, _, mode, n, D), v in dk.dia_stencil.shapes.items():
+        agg[(t, mode, n, D)] = agg.get((t, mode, n, D), 0) + v
+    parts = [f"{t} {mode} {n} rows D {D}: {v / per:g}"
+             for (t, mode, n, D), v in sorted(agg.items(),
+                                              key=lambda kv: -kv[0][2])]
+    parts += [f"gather-ELL {mode} {n} rows: {v / per:g}"
+              for (mode, n), v in sorted(ell.gather_ell_ops.items())]
+    return "; ".join(parts)
+
+
+def widened_levels(amg, ext):
+    """The hierarchy ``amg`` holds for a widened pattern (``ext`` a model's
+    ``_ib_ext``), as ``describe`` reads it: the condensed fine level, then
+    each coarse level but the coarsest."""
+    from fvm_tpu_torch.tools import kernel_bench as kb
+
+    cols, mask, d = ext
+    levels = amg.setup_structure(cols.cpu().numpy().T, mask.cpu().numpy().T,
+                                 cols.device)
+    fine = d if d is None or d.cond_plan is None else d.cond_plan.dia2
+    out = [kb._shape(cols.shape[1], fine)]
+    for lev in levels[:-1]:
+        out.append(kb._shape(lev.nC, getattr(lev, "dia_c", None),
+                             (lev.cols_c, lev.mask_c))
+                   if hasattr(lev, "dia_c") else
+                   kb.LevelShape(lev.nC, tuple(lev.coarse_offsets), 0))
+    return out
+
+
+def ib_flow_card(device, smi, errors):
+    """31 (a) and (b): the 1024^2 float32 flow cylinder; returns its
+    widened momentum level's kernels rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.geom import IBType
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops import ell
+
+    t0 = time.perf_counter()
+    f = cases.ib_cylinder(IB_N, device=device, dtype="float32")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    cols, _, d = f._ib_ext
+    n_ib = int(f.params["ibs_cells"].shape[0])
+    log("ib", f"flow cylinder {IB_N}^2 float32 ({cases.IB_STANDIN}): set up "
+        f"in {total:.2f} s host; of it IBManager.update "
+        f"{f.ib_setup_s['update']:.3f} s, interpolation_stencil "
+        f"{f.ib_setup_s['stencil']:.3f} s, set_immersed_boundary (the "
+        f"widened pattern's DIA analysis and the AMG hierarchies) "
+        f"{f.ib_setup_s['set_immersed_boundary']:.3f} s; {n_ib} IB cells, "
+        f"{int((f.ibm.ib_type == IBType.SOLID).sum())} solid; widened "
+        f"pattern "
+        f"K {cols.shape[0]}: " + (
+            "gather-ELL (too unstructured for DIA)" if d is None else
+            f"DIA offsets {tuple(d.offsets)} + {int(d.fb_rows.shape[0])} "
+            f"fallback entries (condensed: "
+            f"{0 if d.cond_plan is None else int(d.cond_plan.dia2.fb_rows.shape[0])})"))
+    pres = f.options["pressureLinearSolver"]
+    log("ib", "the pressure AMG's hierarchy of the widened pattern (beside "
+        "its structured one; the pressure matrix keeps the mesh's pattern, "
+        "so no solve uses it): " + describe(widened_levels(pres, f._ib_ext)))
+    # (b) first: the momentum system of one eager outer, against the plain
+    # version on its own coefficients
+    A, b = record_system(f, "momentumLinearSolver")
+    if A.dia is None or A.off.shape[0] != f.mesh.cf_nbr.shape[0] + 4:
+        raise AssertionError("the momentum matrix is not the widened one")
+    widened_check(f"IB-stencil momentum level ({IB_N}^2 cylinder, f32)", A,
+                  b, errors)
+    # (a) IB_TIMED eager outers, then the same as one graph replay; the
+    # momentum solve's launches (all at the widened level: its BiCGStab
+    # has no preconditioner) counted in their own scope, apart from the
+    # pressure AMG's at the same rows and offsets
+    mom = f.options["momentumLinearSolver"]
+    solve = mom.solve_fn
+
+    def scoped(A_, b_, x0):
+        with dk.launch_scope("momentum"):
+            return solve(A_, b_, x0)
+
+    mom.solve_fn = scoped
+    f._drop_compiled()
+    f.options["residualSync"] = False
+    f.advance(1)
+    torch.cuda.synchronize()
+    snap = {k: v.clone() for k, v in f.state.items()}
+    dk.reset_launches()
+    ell.gather_ell_ops.clear()
+    t0 = time.perf_counter()
+    h = f.advance(IB_TIMED)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / IB_TIMED
+    hist = np.array([[float(a), float(c)] for _, a, c in h])
+    fine = {m: dk.dia_stencil.scoped.get(("momentum", m), 0)
+            for m in dk.MODES}
+    levels = by_level(IB_TIMED)
+    del mom.solve_fn
+    f._drop_compiled()
+    if not fine.get("mv"):
+        raise AssertionError("dia_stencil was not launched at the widened "
+                             "momentum level")
+    log("ib", f"{IB_TIMED} eager outers: {eager_ms:.3f} ms per outer "
+        f"({IB_N * IB_N / eager_ms * 1e3:.4g} cells/s); the momentum "
+        f"solve's launches at the widened level per outer: "
+        + ", ".join(f"{m} {v / IB_TIMED:g}" for m, v in fine.items())
+        + f"; all dia_stencil launches per outer by (type, mode, level; "
+        f"the pressure AMG's fine level has the same rows): {levels}")
+    # the replay against the eager loop from the same state, both under
+    # deterministic algorithms (the fallback's and the condensation's
+    # index_add add with atomics otherwise: two such runs differed by up
+    # to 3.7e-6 relative), bit for bit
+    f.options.update(momentumTolerance=0.0, continuityTolerance=0.0,
+                     absoluteTolerance=0.0)
+    with deterministic():
+        f.state = {k: v.clone() for k, v in snap.items()}
+        h_det = np.array([[float(a), float(c)]
+                          for _, a, c in f.advance(IB_TIMED)])
+        f.options.update(outerChunk=IB_TIMED, residualSync=True)
+        f.state = {k: v.clone() for k, v in snap.items()}
+        hr_det = np.array([r[1:] for r in f.advance(IB_TIMED)], float)
+    if not np.array_equal(hr_det, h_det):
+        raise AssertionError(f"IB cylinder replay differs from the eager "
+                             f"loop under deterministic algorithms: "
+                             f"{hr_det.tolist()} vs {h_det.tolist()}")
+    # the timed replays capture anew, without deterministic algorithms
+    f._drop_compiled()
+    f.state = {k: v.clone() for k, v in snap.items()}
+    t0 = time.perf_counter()
+    hr = f.advance(IB_TIMED)
+    capture_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(np.array([r[1:] for r in hr]) - hist)
+                       / np.abs(hist)))
+    runner = f._runners[("chunk", IB_TIMED)]
+    f.state = {k: v.clone() for k, v in snap.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f.advance(IB_TIMED)
+    torch.cuda.synchronize()
+    replay_outer = 1e3 * (time.perf_counter() - t0) / IB_TIMED
+    log("ib", f"the same {IB_TIMED} outers as one graph replay: capture and "
+        f"first replay {capture_s:.2f} s; {replay_outer:.3f} ms per outer "
+        f"({IB_N * IB_N / replay_outer * 1e3:.4g} cells/s); residuals "
+        f"equal to the eager loop's bit for bit under deterministic "
+        f"algorithms; without them within {rel:.3e} of the eager loop's "
+        f"(atomics, ungated); launches per outer from the capture: "
+        f"{per_outer(runner.captured, IB_TIMED)}")
+    f.state = {k: v.clone() for k, v in snap.items()}
+    profile_run("ib", f"one replay of {IB_TIMED} outers",
+                lambda: f.advance(IB_TIMED), replay_outer * IB_TIMED)
+    F_body, F_bdry = cases.ib_force_balance(f)
+    log("ib", f"after {2 + 3 * IB_TIMED} outers (not converged; ungated): "
+        f"fluid-region body force {F_body.tolist()}, boundary flux "
+        f"{F_bdry.tolist()}, solid-face getIBForceIntegral "
+        f"{f.getIBForceIntegral().tolist()}")
+    rows = widened_rows(IB_ROW, A, b, (("mv", 2), ("residual", 1),
+                                       ("jacobi", 1)), fine, errors)
+    # the later parts reuse its host mesh and geometry and its device mesh
+    meshes = (f.ibm.mesh, f.ibm.geom, f.mesh)
+    del f, A, b, snap, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, meshes
+
+
+def ib_force_gate(device):
+    """31 (a): the force balance on the converged float64 cylinder."""
+    import torch
+    from fvm_tpu_torch import cases
+
+    n, outers, chunk = IB_FORCE
+    f = cases.ib_cylinder(n, device=device, dtype="float64")
+    f.options["outerChunk"] = chunk
+    for k in ("momentumTolerance", "continuityTolerance",
+              "absoluteTolerance"):
+        f.options[k] = 0.0
+    t0 = time.perf_counter()
+    h = f.advance(outers)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    F_body, F_bdry = cases.ib_force_balance(f)
+    scale = float(np.abs(F_bdry).max())
+    err = float(np.abs(F_body + F_bdry).max()) / scale
+    log("ib", f"force balance, {n}^2 float64 cylinder after {outers} outers "
+        f"({secs:.2f} s, replays of {chunk}; momentum residual "
+        f"{h[-1][1] / h[0][1]:.3e} of the first): fluid-region body force "
+        f"{F_body.tolist()} against minus the boundary momentum flux "
+        f"{(-F_bdry).tolist()}: {err:.3e} of its scale (need < "
+        f"{IB_FORCE_RTOL:g}); the solid-face getIBForceIntegral "
+        f"{f.getIBForceIntegral().tolist()} (O(h) off: the band's rows are "
+        f"constraints, not momentum balances)")
+    if not err < IB_FORCE_RTOL:
+        raise AssertionError(f"IB force balance off by {err:.3e}")
+
+
+def ib_hot_card(device, errors, mesh, geom):
+    """31 (c): the thermal stencil case at card size in float64 on the
+    host ``mesh`` and ``geom`` of (a); returns its widened level's
+    kernels rows."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.ops import ell
+
+    t0 = time.perf_counter()
+    t = cases.ib_hot_cylinder(IB_HOT_N, device=device, mesh=mesh, geom=geom)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    amg = t.options["linearSolver"].preconditioner
+    log("ib", f"hot cylinder {IB_HOT_N}^2 float64 set up in {setup:.2f} s "
+        f"host; the BiCGStab's AMG hierarchy of the widened pattern: "
+        + describe(widened_levels(amg, t._ib_ext)))
+    dk.reset_launches()
+    ell.gather_ell_ops.clear()
+    t0 = time.perf_counter()
+    h = t.advance(2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ratio = h[-1][1] / h[0][1]
+    cons = cases.stencil_constraint_error(t)
+    n = t.mesh.n_cells
+    fine = launches_at(n, dk.type_tag(torch.float64))
+    log("ib", f"hot cylinder: 2 outers in {secs:.2f} s, residuals "
+        f"{[r[1] for r in h]} (ratio {ratio:.3e}, need < {IB_HOT_RATIO:g}), "
+        f"stencil constraint max |T_IB - interp| {cons:.3e} K (need < "
+        f"{IB_HOT_CONSTRAINT:g}); dia_stencil launches by (type, mode, "
+        f"level), gather-ELL products: {by_level()}")
+    if not (ratio < IB_HOT_RATIO and cons < IB_HOT_CONSTRAINT):
+        raise AssertionError("the hot cylinder did not converge in 2 outers")
+    A, r = t._linearize(t.mesh, t.params, t.state, t._resolve_bcvals())
+    A = A.prepare()
+    widened_check(f"IB-stencil thermal level ({IB_HOT_N}^2 hot cylinder, "
+                  f"f64)", A, r, errors)
+    rows = widened_rows(IB_ROW64, A, r, (("mv", 1), ("residual", 1),
+                                         ("jacobi", 1)), fine, errors)
+    del t, A, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mpm_gate(device, n=MPM_GATE_N):
+    """The MPM gate's side on ``device``: x, v, F, C after MPM_SUBSTEPS
+    substeps of the two-block collision at n^2, float64."""
+    from fvm_tpu_torch import cases
+
+    s = cases.mpm_block(n, device=device, dtype="float64")
+    s.advance(MPM_DT * MPM_SUBSTEPS * (1024 // n), substeps=MPM_SUBSTEPS)
+    return {k: s.state[k].cpu().numpy() for k in ("x", "v", "F", "C")}
+
+
+def mpm_card(device):
+    """31 (d): the MPM gate and the 1,048,576-particle collision."""
+    import torch
+    from fvm_tpu_torch import cases
+
+    gpu, cpu = mpm_gate(device), mpm_gate("cpu")
+    vs = float(np.abs(cpu["v"]).max())
+    errs = {k: float(np.abs(gpu[k] - cpu[k]).max()) / sc for k, sc in (
+        ("x", 1.0), ("v", vs), ("F", 1.0), ("C", MPM_GATE_N * vs))}
+    with deterministic():
+        a, b = mpm_gate(device), mpm_gate(device)
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    log("mpm", f"gate {MPM_GATE_N}^2, {MPM_SUBSTEPS} substeps, float64: "
+        f"cuda (a graph replay) against cpu, max err over scale "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (need <= {MPM_GATE_RTOL:g}); two deterministic card runs bit "
+        f"for bit: {same}")
+    if not (max(errs.values()) <= MPM_GATE_RTOL and same):
+        raise AssertionError("the MPM gate failed")
+    n, block = MPM_CARD
+    t0 = time.perf_counter()
+    s = cases.mpm_block(n, device=device, dtype="float64", block=block)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    p0 = s.momentum()
+    scale = float(s.state["m"].sum()) * 0.5
+    dt = MPM_DT * MPM_SUBSTEPS
+    t0 = time.perf_counter()
+    s.advance(dt, substeps=MPM_SUBSTEPS)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.advance(dt, substeps=MPM_SUBSTEPS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MPM_SUBSTEPS
+    p1 = s.momentum()
+    err = float(np.abs(p1 - p0).max()) / scale
+    npart = int(s.state["x"].shape[0])
+    log("mpm", f"{npart} particles on a {n}^2 grid (blocks {block}, 4 a "
+        f"cell), float64: seeded in {setup:.2f} s; capture and first "
+        f"replay of {MPM_SUBSTEPS} substeps {first:.2f} s; {ms:.3f} ms per "
+        f"substep replayed ({npart / ms * 1e3:.4g} particle-substeps/s); "
+        f"momentum {p0.tolist()} -> {p1.tolist()}, change {err:.3e} of "
+        f"sum(m)/2 (need < 1e-8, tests/test_mpm.py:41); F off I by "
+        f"{float((s.state['F'] - torch.eye(2, device=device, dtype=torch.float64)).abs().max()):.3e}")
+    if not err < 1e-8:
+        raise AssertionError("the MPM momentum moved")
+    profile_run("mpm", f"one replay of {MPM_SUBSTEPS} substeps",
+                lambda: s.advance(dt, substeps=MPM_SUBSTEPS),
+                ms * MPM_SUBSTEPS)
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bench_flow(dmesh):
+    """The flow half of bench's cavity (``cases.cavity_models``' flow) on
+    a quad device mesh."""
+    from fvm_tpu_torch.linear import AMG, BiCGStab
+    from fvm_tpu_torch.models import FlowModel
+
+    f = FlowModel(dmesh)
+    f.options["verbose"] = False
+    f.vc["viscosity"] = 0.01
+    for side in ("left", "right", "bottom", "top"):
+        f.bc[side].bc_type = "NoSlipWall"
+    f.bc["top"]["specifiedXVelocity"] = 1.0
+    f.options["pressureLinearSolver"] = AMG(
+        coarse_size=256, relative_tolerance=1e-3, max_iterations=6)
+    f.options["momentumLinearSolver"] = BiCGStab(relative_tolerance=1e-2,
+                                                 max_iterations=10)
+    f.init()
+    return f
+
+
+def other_paths(device, fine_mesh):
+    """31 (e): the prolongation onto ``fine_mesh`` (the 1024^2 float32
+    device mesh of (a)), the cantilever and the adjoint design."""
+    import torch
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.mesh import build_device_mesh
+    from fvm_tpu_torch.mesh.generate import quad_2d
+    from fvm_tpu_torch.models.fmg import prolong_flow_state
+
+    nc, nf = FMG_N
+    if fine_mesh.n_interior_cells != nf * nf:
+        raise AssertionError("the fine mesh is not the 1024^2 quad mesh")
+    coarse = bench_flow(build_device_mesh(quad_2d(nc, nc), dtype="float32",
+                                          device=device))
+    coarse.options["outerChunk"] = FMG_OUTERS
+    coarse.advance(FMG_OUTERS)
+    fine = bench_flow(fine_mesh)
+    cold = {k: v.clone() for k, v in fine.state.items()}
+    hc = fine.advance(1)  # from the cold start
+    fine.state = cold
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prolong_flow_state(coarse, fine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hw = fine.advance(1)
+    log("fmg", f"prolong_flow_state {nc}^2 (after {FMG_OUTERS} outers) -> "
+        f"{nf}^2 float32: {secs:.2f} s host; the fine model's first "
+        f"residuals (momentum, continuity) warm {hw[0][1:]} against cold "
+        f"{hc[0][1:]}")
+    if not hw[0][1] < hc[0][1]:
+        raise AssertionError("the warm start did not lower the residual")
+    del coarse, fine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the unsteady IB cantilever on its stand-in
+    steps, outers = CANT_RUN
+    t0 = time.perf_counter()
+    f, solid, _ = cases.ibm_cantilever(device=device)
+    for key in ("momentumLinearSolver", "pressureLinearSolver"):
+        f.options[key].exit_every = 10
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = cases.cantilever_unsteady(f, solid, steps, outers)
+    secs = time.perf_counter() - t0
+    log("demos", f"ibm_cantilever ({cases.CANT_STANDIN}; "
+        f"{f.mesh.n_interior_cells} cells, {int(solid.sum())} marked): set up "
+        f"{setup:.2f} s, {steps} steps of {outers} outers in {secs:.2f} s "
+        f"({secs / steps:.3f} s a step); (t, v, Fx, Fy) {hist.tolist()}")
+    if not (hist[0, 1] > 0 and hist[0, 3] < 0):
+        raise AssertionError("the cantilever's force does not oppose its "
+                             "motion")
+    del f
+    # the adjoint design loop
+    n, iters = DESIGN_RUN
+    t0 = time.perf_counter()
+    out = cases.adjoint_design(n, iters, device=device)
+    secs = time.perf_counter() - t0
+    log("demos", f"adjoint_design at {n}^2 float64, {iters} iterations in "
+        f"{secs:.2f} s: hot-wall flux J {out['J'].tolist()} (uniform k: "
+        f"100), k in [{out['k'].min():.3f}, {out['k'].max():.3f}], mean "
+        f"{out['k'].mean():.6f}")
+    if not (np.all(np.diff(out["J"]) < 0) and out["J"][-1] < 100.0):
+        raise AssertionError("the adjoint design did not lower the flux")
+
+
+def ib_phase(device, smi):
+    """31 (module docstring); returns the widened levels' kernels rows."""
+    errors = {}
+    t0 = time.perf_counter()
+    rows, (mesh, geom, dmesh) = ib_flow_card(device, smi, errors)
+    log("ib", f"(a, b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ib_force_gate(device)
+    log("ib", f"force gate in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += ib_hot_card(device, errors, mesh, geom)
+    del mesh, geom
+    log("ib", f"(c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mpm_card(device)
+    log("ib", f"(d) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    other_paths(device, dmesh)
+    log("ib", f"(e) in {time.perf_counter() - t0:.1f} s; {smi}")
+    return rows
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -5094,7 +5815,7 @@ def main() -> int:
     start_early(early_cpu_sides("13"))
     # the main path's case, one warm-up step to build its AMG hierarchies
     t0 = time.time()
-    flow, thermal = coupled_cavity(MAIN_N, device=device, dtype=MAIN_DTYPE)
+    flow, thermal = cavity_models(main_mesh(device))
     coupled_step(flow, thermal)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -5342,7 +6063,12 @@ def main() -> int:
     # ---- 30. the phonon BTE and the mesh I/O -----------------------------
     t30 = time.time()
     kernels.extend(extras_phases(device, smi, (30,)))
-    log("done", f"phase 30 in {time.time() - t30:.1f} s; phases 1-30 in "
+    log("done", f"phase 30 in {time.time() - t30:.1f} s")
+
+    # ---- 31. the immersed boundary's stencil rows, MPM, FMG, IB demos -----
+    t31 = time.time()
+    kernels.extend(extras_phases(device, smi, (31,)))
+    log("done", f"phase 31 in {time.time() - t31:.1f} s; phases 1-31 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5351,7 +6077,7 @@ def main() -> int:
 
 
 def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
-    """Phases 18-30 (those in ``phases``), each timed; returns their
+    """Phases 18-31 (those in ``phases``), each timed; returns their
     ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
@@ -5368,7 +6094,8 @@ def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
             (27, lambda: rows.extend(ke_phase(device, smi))),
             (28, lambda: rows.extend(battery_phase(device, smi))),
             (29, lambda: rows.extend(kinetic_phase(device, smi))),
-            (30, lambda: rows.extend(phonon_phase(device, smi)))):
+            (30, lambda: rows.extend(phonon_phase(device, smi))),
+            (31, lambda: rows.extend(ib_phase(device, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

@@ -226,7 +226,8 @@ ITERS, CHECK = 10, 50
 
 
 def converge_cavity(n: int, device=None, polish: str = "newton",
-                    newton_steps: int = 10, models=None, log=None) -> dict:
+                    newton_steps: int = 10, models=None, log=None,
+                    krylov_iterations: int = NEWTON_KIT) -> dict:
     """Wall time to a TARGET_REL (1e-6) relative momentum residual on the
     n x n coupled cavity: the counterpart of ``bench.py``'s converge mode
     (``bench.py:222-643`` with ``FVM_BENCH_CONVERGE=1``,
@@ -242,7 +243,8 @@ def converge_cavity(n: int, device=None, polish: str = "newton",
     * ``polish="newton"``: snapshot the state to the host, drop the f32
       models (their graphs with them), build the float64 pair, restore,
       and run ``advanceNewton(newton_steps)`` with bench's settings (inner
-      tolerance 1e-3, 4000 inner iterations, float32 inner views,
+      tolerance 1e-3, ``krylov_iterations`` (4000) inner iterations at
+      most, float32 inner views,
       BiCGStab in chunks of 240, Eisenstat-Walker forcing, refreeze,
       target TARGET_REL * norm0), then 20 thermal steps.
     * ``polish="anderson"``: promote onto a float64 pair with bench's
@@ -311,7 +313,7 @@ def converge_cavity(n: int, device=None, polish: str = "newton",
                 mesh, dtype="float64", device=dev))
             o = flow.options
             o["newtonKrylovTolerance"] = NEWTON_KTOL
-            o["newtonKrylovIterations"] = NEWTON_KIT
+            o["newtonKrylovIterations"] = krylov_iterations
             o["newtonInnerPrecision"] = INNER_PRECISION
             o["newtonInnerSolver"] = "bicgstab"
             o["newtonChunkIterations"] = NEWTON_CHUNK
@@ -1575,3 +1577,357 @@ def phonon_two_zone_exact(m):
     hot, cold = PHONON_T
     half = 0.5 * (hot - cold)
     return hot - half * t12, cold + half * t21
+
+
+# ---- the immersed boundary's stencil rows, the material-point method and
+# the two demos of the IB family (ROADMAP queue 1 item 9b)
+
+# the flow cylinder: a stand-in on a generated quad_2d(n, n) unit square
+# for the reference IBM cylinder's absent uniform-cart_5K.cas and
+# circle_66.cas (tests/test_ref_cases.py:350-372): an inlet at u = 1 on
+# the left, a pressure outlet on the right, no-slip top and bottom,
+# viscosity 1 (density 1); the body a closed IB_SEGMENTS-gon
+IB_SEGMENTS = 1024
+IB_CENTER, IB_RADIUS = (0.4, 0.5), 0.1
+IB_STANDIN = ("quad_2d(n, n) unit square with a generated 1024-gon of "
+              "radius 0.1 at (0.4, 0.5), for the absent uniform-cart_5K.cas "
+              "and circle_66.cas")
+# the thermal stencil case of tests/test_ibm.py:138-183: a 32-gon of
+# radius 0.15 at the centre, walls at 300, the body at 350
+HOT_SEGMENTS, HOT_RADIUS, HOT_T = 32, 0.15, (300.0, 350.0)
+
+
+def circle_polygon(segments: int, radius: float, center=(0.5, 0.5)):
+    """(vertices, elements) of a closed regular polygon."""
+    th = np.linspace(0, 2 * np.pi, segments + 1)[:-1]
+    verts = np.stack([center[0] + radius * np.cos(th),
+                      center[1] + radius * np.sin(th)], 1)
+    elems = np.stack([np.arange(segments),
+                      (np.arange(segments) + 1) % segments], 1)
+    return verts, elems
+
+
+def _timed(secs, key, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    secs[key] = time.perf_counter() - t0
+    return out
+
+
+def ib_cylinder(n: int, device=None, dtype="float32", stencil: bool = True):
+    """Flow past an immersed circle (``IB_STANDIN``) with bench's cavity
+    solvers (pressure ``AMG(coarse_size=256, rtol 1e-3, 6)``, momentum
+    ``BiCGStab(rtol 1e-2, 10)``), initialised.  ``stencil``: the solid
+    cells pinned at rest and the IB band's momentum rows the implicit
+    interpolation stencil (``mask = solid_mask``, as the reference
+    cylinder's stencil run); else the mask form (solid and band pinned).
+    The model's ``ibm`` is its ``IBManager``; ``ib_setup_s`` holds the
+    host seconds of ``update``, ``interpolation_stencil`` and
+    ``set_immersed_boundary`` (the widened pattern's DIA analysis and AMG
+    hierarchies)."""
+    from .geom import IBManager, IBType
+
+    secs = {}
+    mesh = quad_2d(n, n)
+    geom = compute_geometry(mesh)
+    ibm = IBManager(mesh, geom)
+    t = _timed(secs, "update", ibm.update,
+               *circle_polygon(IB_SEGMENTS, IB_RADIUS, IB_CENTER))
+    n_int = mesh.n_interior_cells
+    solid = t[:n_int] == IBType.SOLID
+    flow = FlowModel(build_device_mesh(mesh, geom, dtype=dtype,
+                                       device=device))
+    flow.options["verbose"] = False
+    flow.vc["viscosity"] = 1.0
+    flow.options["pressureLinearSolver"] = AMG(
+        coarse_size=256, relative_tolerance=1e-3, max_iterations=6)
+    flow.options["momentumLinearSolver"] = BiCGStab(
+        relative_tolerance=1e-2, max_iterations=10)
+    flow.bc["left"].bc_type = "VelocityBoundary"
+    flow.bc["left"]["specifiedXVelocity"] = 1.0
+    flow.bc["right"].bc_type = "PressureBoundary"
+    flow.bc["top"].bc_type = "NoSlipWall"
+    flow.bc["bottom"].bc_type = "NoSlipWall"
+    flow.init()
+    if stencil:
+        st = _timed(secs, "stencil", ibm.interpolation_stencil)
+        _timed(secs, "set_immersed_boundary", flow.set_immersed_boundary,
+               solid, [0.0, 0.0], solid, st)
+    else:
+        _timed(secs, "set_immersed_boundary", flow.set_immersed_boundary,
+               ibm.dirichlet_mask()[:n_int], [0.0, 0.0], solid)
+    flow.ibm = ibm
+    flow.ib_setup_s = secs
+    return flow
+
+
+def ib_force_balance(flow):
+    """(F_body, F_boundary), (dim,) numpy each: the momentum flux of the
+    SIMPLE step's momentum predictor (pressure, viscous and convective,
+    the model's own discretisation of the current state) summed over the
+    faces that bound the FLUID cells of ``flow.ibm``: those to the IB band
+    or the solid (oriented into the body: what the fluid exerts on it)
+    and the domain boundary.  The fluid cells' rows are momentum balances
+    and the band's are not (interpolation constraints, or pins), so at
+    steady state F_body = -F_boundary to the solves' tolerance; the
+    solid-face integral ``getIBForceIntegral`` moves off it by O(h)."""
+    from .geom import IBType
+    from .ops import discretizations as disc
+    from .ops.assembly import cells_to_faces_distance_weighted
+
+    mesh, params = flow.mesh, flow.params
+    bcvals = flow._resolve_bcvals()
+    state = flow._refresh_ghosts(mesh, params, dict(flow.state), bcvals)
+    V, p = state["velocity"], state["pressure"]
+    bnd = torch.arange(mesh.n_faces, device=mesh.device) >= \
+        mesh.n_interior_faces
+    mdot = torch.where(bnd, flow._boundary_mass_flux(mesh, params, state,
+                                                     bcvals),
+                       state["massFlux"])
+    scheme = flow.options["convectionScheme"]
+    gradV = (flow._grad(mesh, params, V)
+             if not mesh.orthogonal or scheme == "sou" else None)
+    mu_f = disc.harmonic_face_gamma(mesh, params["mu"])
+    F = (disc.diffusion_flux(mesh, V, mu_f, gradV).F
+         + disc.convection_flux(mesh, V, mdot, scheme, gradV).F
+         + cells_to_faces_distance_weighted(mesh, p)[:, None]
+         * mesh.face_area).cpu().numpy()
+    n_int, nif = mesh.n_interior_cells, mesh.n_interior_faces
+    fluid = np.ones(mesh.n_cells, dtype=bool)  # ghosts: the boundary
+    fluid[:n_int] = flow.ibm.ib_type[:n_int] == IBType.FLUID
+    o = mesh.face_cell0.cpu().numpy()[:nif]
+    nb = mesh.face_cell1.cpu().numpy()[:nif]
+    sign = np.where(fluid[o] & ~fluid[nb], 1.0,
+                    np.where(~fluid[o] & fluid[nb], -1.0, 0.0))
+    return (sign[:, None] * F[:nif]).sum(axis=0), F[nif:].sum(axis=0)
+
+
+def ib_hot_cylinder(n: int, device=None, mesh=None, geom=None):
+    """The thermal stencil case of ``tests/test_ibm.py:138-183`` on
+    ``quad_2d(n, n)`` in float64: a 32-gon of radius 0.15 at the centre
+    held at 350 through the implicit interpolation rows of its IB band,
+    the solid cells pinned, the walls at 300; the model's default solver
+    (BiCGStab(AMG), rtol 1e-10).  Initialised; ``ibm`` and ``stencil``
+    are kept on the model.  ``mesh`` and ``geom``: that host mesh and its
+    geometry, built already (another case's ``ibm.mesh``, ``ibm.geom``)."""
+    from .geom import IBManager
+
+    if mesh is None:
+        mesh = quad_2d(n, n)
+    geom = geom or compute_geometry(mesh)
+    ibm = IBManager(mesh, geom)
+    ibm.update(*circle_polygon(HOT_SEGMENTS, HOT_RADIUS))
+    t = ThermalModel(build_device_mesh(mesh, geom, dtype="float64",
+                                       device=device))
+    t.options["verbose"] = False
+    for side in ("left", "right", "bottom", "top"):
+        t.bc[side].bc_type = "SpecifiedTemperature"
+        t.bc[side]["specifiedTemperature"] = HOT_T[0]
+    t.init()
+    st = ibm.interpolation_stencil()
+    t.set_immersed_boundary(ibm.dirichlet_mask(include_ib=False), HOT_T[1],
+                            stencil=st)
+    t.ibm, t.stencil = ibm, st
+    return t
+
+
+def stencil_constraint_error(t) -> float:
+    """Largest |T_IB - (ww T_body + sum fw T_fluid) / W| over the IB band
+    of ``ib_hot_cylinder``'s model."""
+    ib, fluid_idx, fluid_w, wall_w = t.stencil
+    T = np.zeros(t.mesh.n_cells)
+    T[: t.mesh.n_interior_cells] = t.getTemperature()
+    expect = (wall_w * HOT_T[1] + (fluid_w * T[fluid_idx]).sum(1)) / (
+        wall_w + fluid_w.sum(1))
+    return float(np.abs(T[ib] - expect).max())
+
+
+def mpm_block(n: int = 16, device=None, dtype=None, block=None):
+    """The two elastic blocks of ``tests/test_mpm.py:41`` on an n x n
+    background grid over the unit square (h = 1/n), Young's modulus 5e3,
+    density 1000, 4 particles a cell, meeting at +-0.5 m/s; ``block``:
+    each block's cells along x and y (an int for a square; default n /
+    4).  The blocks touch at x = 0.5, so the collision starts at once."""
+    from .geom import MPMSolver
+
+    bx, by = ((n // 4, n // 4) if block is None else
+              (block, block) if np.ndim(block) == 0 else tuple(block))
+    h = 1.0 / n
+    s = MPMSolver(origin=(0, 0), h=h, dims=(n, n), youngs=5e3,
+                  density=1000.0, device=device, dtype=dtype)
+    y0 = 0.5 - 0.5 * by * h
+    s.seed_box((0.5 - bx * h, y0), (0.5, y0 + by * h), velocity=(0.5, 0.0))
+    s.seed_box((0.5, y0), (0.5 + bx * h, y0 + by * h),
+               velocity=(-0.5, 0.0))
+    return s
+
+
+# demos/adjoint_design.py: conductivity design on a heated slab (hot left
+# wall 400, cold right 300, adiabatic top and bottom; a mean-k budget of 1
+# within [0.2, 5]; minimise the heat entering at the hot wall)
+DESIGN_LR = 2.0
+
+
+def adjoint_design_build(k_field, n: int = 24, device=None):
+    """The demo's ``build``: the slab with conductivity ``k_field`` in
+    float64, initialised and advanced 40 outers."""
+    t = ThermalModel(build_device_mesh(quad_2d(n, n), dtype="float64",
+                                       device=device))
+    t.options["verbose"] = False
+    t.vc["thermalConductivity"] = k_field
+    t.bc["left"].bc_type = "SpecifiedTemperature"
+    t.bc["left"]["specifiedTemperature"] = 400.0
+    t.bc["right"].bc_type = "SpecifiedTemperature"
+    t.bc["right"]["specifiedTemperature"] = 300.0
+    t.bc["top"].bc_type = "Symmetry"
+    t.bc["bottom"].bc_type = "Symmetry"
+    t.init()
+    t.advance(40)
+    return t
+
+
+def design_project(k):
+    """The demo's ``project``: onto {mean(k) = 1, 0.2 <= k <= 5}
+    (60 bisections on the shift)."""
+    lo, hi = 0.2, 5.0
+    s_lo, s_hi = lo - k.max(), hi - k.min()
+    for _ in range(60):
+        s = 0.5 * (s_lo + s_hi)
+        if np.clip(k + s, lo, hi).mean() < 1.0:
+            s_lo = s
+        else:
+            s_hi = s
+    return np.clip(k + 0.5 * (s_lo + s_hi), lo, hi)
+
+
+def _hot_wall_functional(t):
+    """The demo's objective as a functional of (T interior, params): the
+    heat entering through the hot wall, with the ghost values held at the
+    converged state's (exact at a Dirichlet wall)."""
+    from .ops import discretizations as disc
+    from .ops.gradients import gradient
+
+    nc = t.mesh.n_interior_cells
+    grp = t.mesh.group_by_name("left")
+    T_tail = t.state["T"][nc:].detach()
+
+    def functional(T_int, params):
+        T_full = torch.cat([T_int, T_tail])
+
+        def face_flux(m, T, kk, grad_coeff=None):
+            gamma_f = disc.harmonic_face_gamma(m, kk)
+            gradT = (gradient(m, grad_coeff, T) if grad_coeff is not None
+                     else None)
+            return disc.diffusion_flux(m, T, gamma_f, gradT).F
+
+        args = (T_full, params["k_cell"])
+        if "grad_coeff" in params:
+            args = args + (params["grad_coeff"],)
+        return -t._sum_group(grp, t._map_mesh(face_flux, *args))
+
+    return functional
+
+
+def adjoint_design(n: int = 24, steps: int = 3, device=None) -> dict:
+    """``demos/adjoint_design.py``'s loop: from the demo's seeded
+    perturbation of uniform k, ``steps`` projected-gradient steps with the
+    adjoint gradient of the hot-wall heat flux.  Returns {"J": the
+    objective of each iteration, "grad": the last gradient, "k": the
+    final field}."""
+    nc = n * n
+    k = design_project(
+        1.0 + 0.05 * np.random.default_rng(0).standard_normal(nc))
+    Js, gK = [], None
+    for _ in range(steps):
+        t = adjoint_design_build(k, n, device)
+        Js.append(float(t.getHeatFluxIntegral("left")))
+        gK = t.solve_adjoint(_hot_wall_functional(t), ["k_cell"])["k_cell"]
+        k = design_project(k - DESIGN_LR * gK / (np.abs(gK).max() + 1e-30))
+    return {"J": np.asarray(Js), "grad": np.asarray(gK), "k": k}
+
+
+# demos/ibm_unsteady_cantilever.py (scripts/IBM-Unsteady-Cantilever.py):
+# a 35 x 1 um beam particle cloud in a 250 x 200 um air box, oscillating
+# transversely at 114415 Hz, velocity amplitude 0.1 m/s.  Its fullbeam.cas
+# and MPMs-fullbeam.dat are absent: the stand-in is a generated box of
+# CANTILEVER_BOX cells of 2 um (the demo's cell size, ``radius`` comment)
+# and a generated beam of 4 particles a um^2 anchored at the left wall
+CANT_FREQUENCY = 114415.0
+CANT_TIME_STEP = 5.0e-08
+CANT_AMPLITUDE = 0.1
+CANT_BOX_UM = (250.0, 200.0)
+CANT_BEAM_UM = (35.0, 1.0)
+CANT_STANDIN = ("generated 250 x 200 um quad_2d box and 35 x 1 um particle "
+                "beam, for the absent fullbeam.cas and MPMs-fullbeam.dat")
+
+
+def cantilever_box():
+    """The stand-in air box: 250 x 200 um in 2 um cells."""
+    return quad_2d(125, 100, lx=CANT_BOX_UM[0] * 1e-6,
+                   ly=CANT_BOX_UM[1] * 1e-6)
+
+
+def cantilever_beam(height_um: float = CANT_BOX_UM[1]):
+    """The stand-in beam cloud: a half-um lattice over 35 x 1 um along
+    the mid-height of a box ``height_um`` tall, from the left wall; (n, 2)
+    metres."""
+    lx, ly = CANT_BEAM_UM
+    xs = (np.arange(int(lx * 2)) + 0.5) / 2
+    ys = (np.arange(int(ly * 2)) + 0.5) / 2
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    y0 = 0.5 * (height_um - ly)
+    return np.stack([X.ravel(), Y.ravel() + y0], 1) * 1e-6
+
+
+def ibm_cantilever(mesh=None, particles=None, device=None):
+    """The demo's ``build``: the beam cloud cell-marked (radius 1.1 um, the
+    demo's), a transient air ``FlowModel`` (dt 5e-8, momentum URF 0.9,
+    pressure 0.1, air's viscosity and density), all walls no-slip,
+    initialised.  ``mesh``: a host mesh or the path of a Fluent case (the
+    demo reads ``fullbeam.cas``; ``scripts/fluent_case.py`` writes the
+    stand-in box as one); default the stand-in box.  Returns (flow, solid
+    mask of the interior cells, ibType of the interior cells)."""
+    from .geom import IBType, cell_mark_particles
+    from .io import read_fluent_mesh
+
+    m0 = (cantilever_box() if mesh is None else read_fluent_mesh(mesh)
+          if isinstance(mesh, str) else mesh)
+    pts = cantilever_beam() if particles is None else particles
+    t = cell_mark_particles(m0, pts, radius=1.1e-6)
+    n_int = m0.n_interior_cells
+    solid = t[:n_int] == IBType.SOLID
+    f = FlowModel(build_device_mesh(m0, dtype="float64", device=device))
+    f.options["verbose"] = False
+    f.options["transient"] = True
+    f.options["timeStep"] = CANT_TIME_STEP
+    f.options["momentumURF"] = 0.9
+    f.options["pressureURF"] = 0.1
+    f.vc["viscosity"] = 1.7894e-5
+    f.vc["density"] = 1.225
+    for g in m0.boundary_groups:
+        f.bc[g.name].bc_type = "NoSlipWall"
+    f.init()
+    return f, solid, t[:n_int]
+
+
+def cantilever_unsteady(f, solid, n_steps: int,
+                        iters_per_step: int) -> np.ndarray:
+    """The demo's ``advance_unsteady`` (the reference's advanceUnsteady,
+    :55-95): per time step the body velocity set on the marked cells, the
+    step converged by ``iters_per_step`` outers, the IB force recorded,
+    ``updateTime``.  Returns rows (t, v, Fx, Fy)."""
+    import math
+
+    hist = []
+    t = 0.0
+    for _ in range(n_steps):
+        v = CANT_AMPLITUDE * math.cos(2.0 * math.pi * CANT_FREQUENCY * t)
+        vel = np.zeros((f.mesh.n_interior_cells, 2))
+        vel[solid, 1] = v
+        f.set_immersed_boundary(solid, vel, solid_mask=solid)
+        f.advance(iters_per_step)
+        F = np.asarray(f.getIBForceIntegral())
+        hist.append((t, v, F[0], F[1]))
+        t += CANT_TIME_STEP
+        f.updateTime()
+    return np.asarray(hist)

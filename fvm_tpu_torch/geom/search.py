@@ -63,16 +63,7 @@ class AABB:
         """Ray-crossing parity test; True for points inside the surface."""
         pts = np.asarray(points, dtype=np.float64)
         if self.dim == 2:
-            a = self.v[self.e[:, 0]]  # (ns, 2)
-            b = self.v[self.e[:, 1]]
-            x, y = pts[:, 0][:, None], pts[:, 1][:, None]
-            ya, yb = a[None, :, 1], b[None, :, 1]
-            xa, xb = a[None, :, 0], b[None, :, 0]
-            straddle = (ya > y) != (yb > y)
-            with np.errstate(divide="ignore", invalid="ignore"):
-                xi = xa + (y - ya) * (xb - xa) / (yb - ya)
-            crossing = straddle & (xi > x)
-            return crossing.sum(axis=1) % 2 == 1
+            return self._inside_2d(pts)
         # 3D: +x ray vs triangles (Moller-Trumbore, vectorized)
         p0 = self.v[self.e[:, 0]][None]  # (1, ns, 3)
         p1 = self.v[self.e[:, 1]][None]
@@ -99,6 +90,30 @@ class AABB:
             & (t > 0)
         )
         return hit.sum(axis=1) % 2 == 1
+
+    def _inside_2d(self, pts: np.ndarray) -> np.ndarray:
+        """The 2D +x ray parity test over the (point, segment) pairs that
+        straddle: a segment from ya to yb straddles the points with
+        min(ya, yb) <= y < max(ya, yb) (no point when ya == yb), found by a
+        binary search of the points sorted by y, so the work follows the
+        pairs, not points x segments.  Each pair's crossing abscissa is the
+        brute-force formula, so the result is the same bit for bit."""
+        a = self.v[self.e[:, 0]]  # (ns, 2)
+        b = self.v[self.e[:, 1]]
+        y = pts[:, 1]
+        order = np.argsort(y, kind="stable")
+        ys = y[order]
+        lo = np.searchsorted(ys, np.minimum(a[:, 1], b[:, 1]), side="left")
+        hi = np.searchsorted(ys, np.maximum(a[:, 1], b[:, 1]), side="left")
+        count = np.where(a[:, 1] == b[:, 1], 0, hi - lo)
+        seg = np.repeat(np.arange(len(a)), count)
+        start = np.repeat(lo - np.cumsum(count) + count, count)
+        p = order[np.arange(len(seg)) + start]
+        xa, ya = a[seg, 0], a[seg, 1]
+        xb, yb = b[seg, 0], b[seg, 1]
+        xi = xa + (y[p] - ya) * (xb - xa) / (yb - ya)
+        crossings = np.bincount(p[xi > pts[p, 0]], minlength=len(pts))
+        return crossings % 2 == 1
 
     def segment_intersections(self, p0s: np.ndarray, p1s: np.ndarray) -> np.ndarray:
         """Count surface crossings of each segment p0->p1 (2D only for now)."""

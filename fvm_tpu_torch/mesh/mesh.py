@@ -268,6 +268,10 @@ class Mesh:
         hit = (mask_a[o] & mask_b[n]) | (mask_b[o] & mask_a[n])
         return np.nonzero(hit)[0]
 
+    def ghost_cell_of_boundary_face(self, f: int) -> int:
+        """Ghost cell id for boundary face index f (global face numbering)."""
+        return self.n_interior_cells + (f - self.n_interior_faces)
+
     @property
     def cell_faces(self) -> CRConnectivity:
         """Interior cells -> faces (ghost cells excluded; they have 1 face)."""

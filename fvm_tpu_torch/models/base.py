@@ -151,24 +151,29 @@ class Model:
         return (self.mesh.group_by_name(group_name)
                 if isinstance(group_name, str) else group_name)
 
-    # --- immersed boundary, mask form (fvm_tpu/models/base.py:287-342,
-    # 462-505; the reference's GenericIBDiscretization.h consumers) --------
+    # --- immersed boundary (fvm_tpu/models/base.py:287-505; the
+    # reference's IBManager consumers and GenericIBDiscretization.h) -------
 
     def _set_immersed_boundary(self, mask, value, stencil=None,
                                implicit=True) -> None:
-        """Pin the cells of ``mask`` (per cell, interior ordering) to
-        ``value`` (a scalar or per-cell (n,) / (n, m) body value), padded to
-        the device mesh's cells.  Call after ``init()``, which rebuilds the
-        params.  The step and its captured graphs are dropped, so the next
-        advance runs (and captures) the step with the IB rows."""
+        """Shared IB parameter set-up.  ``mask``: per cell (interior
+        ordering) the cells pinned to ``value`` (a scalar or a per-cell
+        (n,) / (n, m) body value), padded to the device mesh's cells;
+        ``stencil``: ``IBManager.interpolation_stencil()``, whose rows
+        constrain the IB band, with ``implicit=True`` inside the matrix
+        through appended ELL slots (``assembly.ib_stencil_rows_implicit``,
+        as GenericIBDiscretization.h), with ``implicit=False`` as pinned
+        rows lagged by one outer iteration.  Call after ``init()``, which
+        rebuilds the params.  The step and its captured graphs are
+        dropped, so the next advance runs (and captures) the new rows."""
         if not self._initialized:
             # init() rebuilds self.params and would silently wipe the masks
             raise ConfigError("call init() before set_immersed_boundary()")
-        if stencil is not None:
+        if getattr(self, "partition", None) is not None:
             raise ConfigError(
-                f"{self.name}: the stencil form of the immersed boundary "
-                "(IBManager interpolation rows) is not ported yet (ROADMAP "
-                "queue 1 item 9); pass the mask form")
+                f"{self.name}: the distributed immersed boundary (the "
+                "per-shard stencil tables) is not ported yet (ROADMAP queue "
+                "1 item 8)")
         mesh = self.mesh
         nc = mesh.n_cells
         m = np.zeros(nc, dtype=bool)
@@ -186,7 +191,58 @@ class Model:
             v = vv
         self.params["ib_mask"] = torch.from_numpy(m).to(mesh.device)
         self.params["ib_value"] = v.to(mesh.device)
+        if stencil is not None:
+            self._set_ib_stencil(stencil, implicit)
         self._drop_compiled()
+
+    def _set_ib_stencil(self, stencil, implicit) -> None:
+        """The stencil's tables as params and, in the implicit form, the
+        widened static structure: ``k`` appended ELL slots carrying each
+        IB row's fluid-cell couplings (``fvm_tpu/models/base.py:340-388``)."""
+        from ..linear import AMG
+        from ..ops.dia import DIAInfo, index_tensor
+
+        mesh = self.mesh
+        dev = mesh.device
+        ib_cells, fluid_idx, fluid_w, wall_w = stencil
+        ib_np = np.asarray(ib_cells, dtype=np.int64)
+        fi_np = np.asarray(fluid_idx, dtype=np.int64)
+        fw_np = np.asarray(fluid_w, dtype=np.float64)
+        self.params["ibs_cells"] = index_tensor(ib_np, dev)
+        self.params["ibs_fluid"] = index_tensor(fi_np, dev)
+        self.params["ibs_fw"] = torch.from_numpy(fw_np).to(dev, mesh.dtype)
+        self.params["ibs_ww"] = torch.from_numpy(np.asarray(
+            wall_w, dtype=np.float64)).to(dev, mesh.dtype)
+        if not implicit:
+            self._ib_ext = None
+            return
+        nc = mesh.n_cells
+        cols_np, mask_np = mesh.host_cf()
+        K = cols_np.shape[1]
+        k = fi_np.shape[1]
+        cols_ext = np.concatenate(
+            [cols_np, np.tile(np.arange(nc, dtype=cols_np.dtype)[:, None],
+                              (1, k))], axis=1)
+        mask_ext = np.concatenate(
+            [np.asarray(mask_np), np.zeros((nc, k), dtype=bool)], axis=1)
+        cols_ext[ib_np, K:] = fi_np
+        mask_ext[ib_np, K:] = fw_np > 0
+        # the device tables are slot-leading (K + k, n); the DIA form of the
+        # widened pattern carries the couplings off its offsets as fallback
+        # entries (None: too unstructured, the gather-ELL products)
+        self._ib_ext = (index_tensor(cols_ext.T, dev),
+                        torch.from_numpy(np.ascontiguousarray(
+                            mask_ext.T)).to(dev),
+                        DIAInfo.build(cols_ext, mask_ext, dev))
+        # AMG hierarchies of the widened pattern, BESIDE the existing ones
+        # (a flow model's pressure matrix keeps the mesh's pattern; a solve
+        # finds its hierarchy by its pattern)
+        for key in ("linearSolver", "pressureLinearSolver",
+                    "momentumLinearSolver"):
+            s = self.options.get(key)
+            for ss in (s, getattr(s, "preconditioner", None)):
+                if isinstance(ss, AMG):
+                    ss.setup_structure(cols_ext, mask_ext, dev)
 
     def _drop_compiled(self) -> None:
         """Rebuild the step and drop the runners (and their CUDA graphs)
@@ -197,8 +253,31 @@ class Model:
         self._runners = {}
 
     def _apply_ib(self, mesh, params, A, r, phi):
-        """Immersed-boundary rows: the masked cells pinned to their value
-        (``assembly.dirichlet_cells``)."""
+        """Immersed-boundary rows: the stencil band (implicit: widened
+        matrix; lagged: pinned to the interpolation of the current
+        iterate), then the masked cells pinned to their value."""
+        if "ibs_cells" in params:
+            ib = params["ibs_cells"]
+            fluid = params["ibs_fluid"]
+            w_f, w_w = params["ibs_fw"], params["ibs_ww"]
+            val = params["ib_value"]
+            ext = getattr(self, "_ib_ext", None)
+            if ext is not None:
+                A, r = assembly.ib_stencil_rows_implicit(
+                    A, r, ib, fluid, w_f, w_w, val, phi, *ext)
+            else:
+                W = w_w + w_f.sum(dim=1)
+                if phi.ndim == 1:
+                    num = w_w * val[ib] + (w_f * phi[fluid]).sum(dim=1)
+                    vals = num / W
+                else:
+                    num = w_w[:, None] * val[ib] + torch.einsum(
+                        "ik,ikm->im", w_f, phi[fluid])
+                    vals = num / W[:, None]
+                full_vals = torch.zeros_like(phi).index_copy(0, ib, vals)
+                band = torch.zeros(mesh.n_cells, dtype=torch.bool,
+                                   device=phi.device).index_fill(0, ib, True)
+                A, r = assembly.dirichlet_cells(A, r, band, full_vals, phi)
         if "ib_mask" in params:
             A, r = assembly.dirichlet_cells(A, r, params["ib_mask"],
                                             params["ib_value"], phi)
@@ -382,6 +461,10 @@ class Model:
         """Shift time levels (reference: <Model>_impl updateTime)."""
         raise NotImplementedError(f"{self.name} is not transient")
 
+    def update_time(self):
+        """Alias of ``updateTime``."""
+        self.updateTime()
+
     # --- persistence (reference: Model.h:23-26) ---------------------------
 
     def getPersistenceData(self) -> dict:
@@ -400,6 +483,22 @@ class Model:
                     old.device, copy=True)
 
 
+def zero_float_tangent(tree):
+    """A zero tangent of a nest of dicts, lists and tuples of tensors (or
+    arrays): zeros for floating leaves, None for the others, which
+    ``torch.func.jvp`` takes no tangent for and a caller holds fixed (the
+    JAX package gives them jax's symbolic float0 zeros)."""
+    if isinstance(tree, dict):
+        return {k: zero_float_tangent(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zero_float_tangent(v) for v in tree)
+    x = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(
+        np.asarray(tree))
+    if x.is_floating_point() or x.is_complex():
+        return torch.zeros_like(x)
+    return None
+
+
 def as_tensor_like(v, ref) -> torch.Tensor:
     """``v`` (a number, numpy array or tensor) as a tensor of ``ref``'s
     dtype on its device."""
@@ -412,6 +511,9 @@ def as_tensor_like(v, ref) -> torch.Tensor:
 class ResidualHistory(list):
     """Convergence history; printable like the reference's per-iteration
     '<n>: <residual>' lines (ThermalModel_impl.h:443)."""
+
+    def converged(self, tol: float) -> bool:
+        return len(self) > 0 and self[-1][1] <= tol
 
 
 def single_device_model(name: str, partition) -> None:

@@ -20,12 +20,12 @@ programs over them on the device.  In a transient run the traps are
 updated explicitly after the charge solve.
 
 BC types: 'SpecifiedPotential', 'SpecifiedCharge' (surface charge density
--> flux) and 'Symmetry'; the mask form of the immersed boundary; double-
+-> flux) and 'Symmetry'; the immersed boundary (mask and stencil forms); double-
 shell interfaces in the potential solve, the dielectric layer
 (LinearizeDielectric.h:102) among them.  Sensitivities of the potential
 solve (``solve_tangent``, ``solve_adjoint``, ``solve_mc``, charge held
-fixed).  The stencil form of the immersed boundary (ROADMAP queue 1 item
-9) raises ``ConfigError``, as does a partitioned mesh (item 8).
+fixed).  A partitioned mesh raises ``ConfigError`` (ROADMAP queue 1 item
+8).
 """
 
 from __future__ import annotations
@@ -491,8 +491,8 @@ class ElectricModel(TangentMixin, Model):
                               implicit=True) -> None:
         """Pin the cells of ``mask`` to an electrode potential ``value``
         (the reference's IBM electrostatics pipeline,
-        src/fvm/test/IBM_PARALLEL).  The stencil form raises (not ported
-        yet)."""
+        src/fvm/test/IBM_PARALLEL).  With ``stencil`` the IB band carries
+        the interpolation rows, implicitly unless ``implicit=False``."""
         self._set_immersed_boundary(mask, value, stencil, implicit)
 
     # --- sensitivities (TangentMixin bound to the potential solve;

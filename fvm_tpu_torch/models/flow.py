@@ -23,13 +23,14 @@ convection schemes, BDF transient terms, BCs 'NoSlipWall', 'SlipJump'
 (Maxwell first-order slip), 'VelocityBoundary', 'PressureBoundary' and
 'Symmetry', the coupled
 pressure-velocity step (``advanceCoupled``), Anderson acceleration and the
-JFNK Newton endgame (``advanceNewton``), the mask form of the immersed
-boundary in the SIMPLE step (as in the JAX package, not in
-``advanceCoupled`` or the Newton residual) and the force and flux
+JFNK Newton endgame (``advanceNewton``), the immersed boundary in the
+SIMPLE step (the mask form, and the stencil form on the momentum rows; as
+in the JAX package, not in ``advanceCoupled`` or the Newton residual) and
+the force and flux
 integrals; the sensitivities (``solve_tangent``, ``solve_tangent_force``,
 ``solve_adjoint``, ``solve_adjoint_force``: the tangent and adjoint fixed
-points of the SIMPLE map at the converged state).  The stencil form of the
-immersed boundary and the FMG prolongation come later.
+points of the SIMPLE map at the converged state).  The mesh-sequencing
+warm start is ``models/fmg.prolong_flow_state``.
 """
 
 from __future__ import annotations
@@ -1300,8 +1301,12 @@ class FlowModel(Model):
         ``mask``: cells pinned to the body ``velocity`` ((dim,) or (n,
         dim)); ``solid_mask``: the strictly solid cells, whose pressure
         correction is pinned to 0 and whose faces carry no mass flux (the
-        body surface the force integral sums over).  Call after
-        ``init()``; the stencil form raises (not ported yet)."""
+        body surface the force integral sums over); ``stencil``:
+        ``IBManager.interpolation_stencil()``, whose implicit rows
+        constrain the IB band's MOMENTUM (the reference's
+        GenericIBDiscretization on momentum), moving the effective no-slip
+        surface from the pinned-cell staircase to the body surface; with
+        a stencil pass ``mask = solid_mask``.  Call after ``init()``."""
         mesh = self.mesh
         v = np.asarray(velocity, dtype=np.float64)
         v = np.broadcast_to(v, (mesh.n_interior_cells, mesh.dim)).copy()

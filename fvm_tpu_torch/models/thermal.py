@@ -10,13 +10,13 @@ outflow), 'Convective' (heatTransferCoefficient + farFieldTemperature),
 'Radiative' (surfaceEmissivity + farFieldTemperature), 'Mixed' (convective
 + radiative) and 'Periodic' (the implicit wrap of ``Mesh.make_periodic``
 pairs); double-shell interfaces (contact resistance, thermal jump layers:
-``model.interface[name]``, core/interfaces.py); the mask form of the
-immersed boundary and ``getHeatFluxIntegral``; sensitivities (``TangentMixin``: tangent,
+``model.interface[name]``, core/interfaces.py); the immersed boundary
+(mask form, and the ``IBManager`` stencil rows, implicit or lagged) and
+``getHeatFluxIntegral``; sensitivities (``TangentMixin``: tangent,
 adjoint, Monte-Carlo and polynomial chaos of T with respect to "k_cell",
 "rho_cp" and "src") and the ``differentiable`` option, whose steps solve
 through ``solve_fn_implicit`` so ``torch.func.jvp`` and reverse mode
-through a whole step give exact sensitivities.  The stencil form of the
-immersed boundary (ROADMAP queue 1 item 9) comes later.
+through a whole step give exact sensitivities.
 """
 
 from __future__ import annotations
@@ -315,7 +315,10 @@ class ThermalModel(TangentMixin, Model):
     def set_immersed_boundary(self, mask, value, stencil=None,
                               implicit=True) -> None:
         """Pin the cells of ``mask`` to a temperature ``value`` (scalar or
-        per cell).  The stencil form raises (not ported yet)."""
+        per cell).  With ``stencil`` (``IBManager.interpolation_stencil()``)
+        pass ``mask = ibm.dirichlet_mask(include_ib=False)``: the IB band
+        carries the interpolation rows, in the matrix (``implicit``, the
+        reference's GenericIBDiscretization.h) or lagged by one outer."""
         self._set_immersed_boundary(mask, value, stencil, implicit)
 
     def getHeatFluxIntegral(self, group_name) -> float:

@@ -40,6 +40,17 @@ class FaceFlux:
             self.dF_dN + other.dF_dN,
         )
 
+    @staticmethod
+    def zeros(n_faces: int, m: int | None = None, dtype=torch.float64,
+              device=None) -> "FaceFlux":
+        """A zero flux: F (n_faces,) or (n_faces, m), scalar derivatives."""
+        shape = (n_faces,) if m is None else (n_faces, m)
+        return FaceFlux(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(n_faces, dtype=dtype, device=device),
+            torch.zeros(n_faces, dtype=dtype, device=device),
+        )
+
 
 def assemble(mesh, flux: FaceFlux, r_cell=None, diag_cell=None):
     """Build (A, r) from per-face linearized fluxes + optional cell terms.
@@ -94,6 +105,11 @@ def identity_unowned_rows(mesh, A: ELLMatrix, r):
     return A.replace(diag=diag, off=off), r
 
 
+def face_values(mesh, x, weight=0.5):
+    """Linear two-point interpolation of a cell field to faces."""
+    return weight * mesh.take_nbr(x) + (1.0 - weight) * mesh.take_owner(x)
+
+
 def cells_to_faces_distance_weighted(mesh, x):
     """Interpolate using inverse-distance weights from cell centroids."""
     wo = mesh.face_wo.reshape((-1,) + (1,) * (x.ndim - 1))
@@ -116,3 +132,56 @@ def dirichlet_cells(A: ELLMatrix, r, mask, value, phi):
     else:
         r = torch.where(mask[:, None], (s * (value - phi))[:, None], r)
     return A.replace(diag=diag, off=off), r
+
+
+def ib_stencil_rows_implicit(A: ELLMatrix, r, ib_cells, fluid_idx, fw, ww,
+                             value, phi, cols_ext, mask_ext, dia_ext=None,
+                             valid=None):
+    """IMPLICIT immersed-boundary interpolation rows
+    (``fvm_tpu/ops/assembly.py:158-212``).
+
+    The IB band's equation  phi_IB = (ww phi_wall + sum_j fw_j phi_fj) / W
+    goes into the matrix: the stencil's fluid-cell couplings fill ``k``
+    appended ELL slots (``cols_ext``/``mask_ext``, the widened structure
+    built by ``set_immersed_boundary``, with its DIA form ``dia_ext``), so
+    each outer update solves the band and the fluid together (the
+    reference's GenericIBDiscretization.h; the lagged pinned rows are
+    first order in the outer iteration).
+
+    ``phi``/``value``: (n,) or (n, m).  ``valid``: optional (n_ib,) bool;
+    False entries are padding and leave their rows untouched.  Returns the
+    widened (A, r), its DIA coefficients to be rebuilt (``prepare``)."""
+    n = A.off.shape[1]
+    k = fluid_idx.shape[1]
+    if valid is None:
+        valid = torch.ones(ib_cells.shape, dtype=torch.bool,
+                           device=ib_cells.device)
+    s_full = torch.where(A.diag.abs() > 0, A.diag.abs(), 1.0)
+    # the rows of the valid entries (a padding entry may share a row)
+    band = torch.zeros(n, dtype=torch.int64, device=A.diag.device).index_add(
+        0, ib_cells, valid.to(torch.int64)) > 0
+    s = s_full[ib_cells]
+    W = ww + fw.sum(dim=1)
+    if phi.ndim == 1:
+        interp = (ww * value[ib_cells]
+                  + (fw * phi[fluid_idx]).sum(dim=1)) / W
+        resid = torch.where(valid, s * (interp - phi[ib_cells]), 0.0)
+        rs = torch.zeros_like(r).index_put((ib_cells,), resid)
+        r = torch.where(band, rs, r)
+    else:
+        interp = (ww[:, None] * value[ib_cells]
+                  + torch.einsum("ik,ikm->im", fw, phi[fluid_idx])
+                  ) / W[:, None]
+        resid = torch.where(valid[:, None],
+                            s[:, None] * (interp - phi[ib_cells]), 0.0)
+        rs = torch.zeros_like(r).index_put((ib_cells,), resid)
+        r = torch.where(band[:, None], rs, r)
+    diag = torch.where(band, s_full, A.diag)
+    off0 = torch.where(band[None, :], 0.0, A.off)
+    vals = torch.where(valid[:, None], -s[:, None] * fw / W[:, None], 0.0)
+    off_ext = torch.zeros((k, n), dtype=A.off.dtype, device=A.off.device)
+    off_ext.index_copy_(1, ib_cells, vals.T)
+    A2 = A.replace(diag=diag, off=torch.cat([off0, off_ext], dim=0),
+                   cols=cols_ext, mask=mask_ext, dia=dia_ext, dia_coef=None,
+                   dia_fb_vals=None, scatter=None)
+    return A2, r

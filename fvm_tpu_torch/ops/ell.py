@@ -223,6 +223,54 @@ class ELLMatrix:
         return dia_apply_coef(A.dia, A.diag, A.dia_coef, A.dia_fb_vals, x,
                               b=b, omega=omega, mode="jacobi")
 
+    def colored_gs_step(self, x, b, color_masks, forward=True):
+        """Multicolor Gauss-Seidel sweep: one color at a time, each a
+        Jacobi update of that color's rows (no coupling inside a color),
+        ``color_masks`` (ncolors, n) bool from ``greedy_coloring`` (the
+        reference's forwardGS/reverseGS, CRMatrix.h:303-353)."""
+        colors = range(color_masks.shape[0])
+        if not forward:
+            colors = reversed(list(colors))
+        for c in colors:
+            m = color_masks[c]
+            upd = x + self.diag_solve(self.residual(x, b))
+            x = torch.where(m if x.ndim == 1 else m[:, None], upd, x)
+        return x
+
+    def rowsum_offdiag_abs(self):
+        """sum_k |off[k, c]| over the valid slots, (n,)."""
+        return torch.where(self.mask, self.off.abs(), 0.0).sum(dim=0)
+
+    def transpose_apply(self, x):
+        """A^T x by scatter-add (adjoint checks)."""
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[:, None]
+        off = torch.where(self.mask, self.off, 0.0)
+        y = self.diag[:, None] * x
+        contrib = off[:, :, None] * x[None, :, :]  # (K, n, m)
+        y = y.index_add(0, self.cols.reshape(-1),
+                        contrib.reshape(-1, x.shape[1]))
+        return y[:, 0] if squeeze else y
+
+
+def greedy_coloring(cols_np, mask_np):
+    """Host greedy graph coloring of HOST (n, K) tables; returns (ncolors,
+    n) bool masks (the JAX package's loop, whose native version colors
+    identically)."""
+    n, K = cols_np.shape
+    color = -np.ones(n, dtype=np.int64)
+    for i in range(n):
+        nbr_colors = {color[cols_np[i, k]] for k in range(K) if mask_np[i, k]}
+        c = 0
+        while c in nbr_colors:
+            c += 1
+        color[i] = c
+    ncolors = int(color.max()) + 1
+    masks = np.zeros((ncolors, n), dtype=bool)
+    masks[color, np.arange(n)] = True
+    return masks
+
 
 # gather-ELL products by (mode, rows) since the last reset: each is several
 # PyTorch launches (gather, products, slot sum, elementwise), counted once

@@ -22,25 +22,34 @@ FP32_OPS_PER_S = 67e12
 MODE_OPS = {"mv": 0, "residual": 1, "jacobi": 4}
 
 
+def _generator(device, seed):
+    """A generator on ``device`` itself, made from a seed: on a card the
+    numbers are drawn there (a million-row operator drawn on the host
+    takes ~0.3 s of one core; the values differ from the host's)."""
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
 def random_operator(n, offsets, dtype, device, seed):
     """Random DIA operator in the kernel's layout, with the out-of-range
     coefficients zeroed (as ``analyze_offsets`` guarantees for real
     matrices) and a dominant diagonal, made from a seed."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    coef = torch.randn((len(offsets), n), generator=g, dtype=torch.float64)
-    idx = torch.arange(n)
+    g = _generator(device, seed)
+    coef = torch.randn((len(offsets), n), generator=g, dtype=torch.float64,
+                       device=device)
+    idx = torch.arange(n, device=device)
     for j, d in enumerate(offsets):
         coef[j, (idx + d < 0) | (idx + d >= n)] = 0.0
-    diag = torch.rand(n, generator=g, dtype=torch.float64) + 4.0
-    return dk.pack_coef(coef.to(device, dtype)), diag.to(device, dtype)
+    diag = torch.rand(n, generator=g, dtype=torch.float64,
+                      device=device) + 4.0
+    return dk.pack_coef(coef.to(dtype)), diag.to(dtype)
 
 
 def random_vectors(n, m, dtype, device, seed):
-    g = torch.Generator(device="cpu").manual_seed(seed)
+    g = _generator(device, seed)
     shape = (n,) if m == 1 else (n, m)
-    x = torch.randn(shape, generator=g, dtype=torch.float64)
-    b = torch.randn(shape, generator=g, dtype=torch.float64)
-    return x.to(device, dtype), b.to(device, dtype)
+    x = torch.randn(shape, generator=g, dtype=torch.float64, device=device)
+    b = torch.randn(shape, generator=g, dtype=torch.float64, device=device)
+    return x.to(dtype), b.to(dtype)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """How far the JAX package's own residual histories move under round-off.
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
-        ib,channel,homocase,electric,goldens,structures,transport,ke,
-        battery,charging,kinetic,phonon]
+        ib,ib_stencil,channel,homocase,electric,goldens,structures,
+        transport,ke,battery,charging,kinetic,phonon]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -20,6 +20,13 @@ all by default):
   scaled by 1 + 1e-15;
 * ``ib``: 40 SIMPLE outers of the immersed-block cavity of
   ``tests/test_ibm.py:337`` (20^2, default solvers), the viscosity scaled;
+* ``ib_stencil``: the flow cylinder of the port's ``cases.ib_cylinder``
+  (a 1024-gon of radius 0.1 at (0.4, 0.5) in quad_2d(24, 24), the solid
+  pinned, the IB band's momentum rows the implicit interpolation
+  stencil; inlet, outlet, walls; float64), the viscosity scaled: the
+  first ``IBS_OUTERS`` SIMPLE outers with bench's cavity solvers and with
+  tight ones (momentum ``BiCGStab(1e-12, 60)``, AMG to 1e-12 in 60
+  cycles);
 * ``channel``: bench's heated channel at ``quad_2d(48, 16)`` in float64
   (``bench.py:729-813``, the port's ``cases.heated_channel``), the
   viscosity scaled: the flow's first ``CHANNEL_OUTERS`` outers, then the
@@ -163,6 +170,48 @@ def channel_models(jfvm, nx, ny, solvers=BENCH, mu_scale=1.0):
     return flow, thermal
 
 
+IBS_N, IBS_OUTERS = 24, 40
+IBS_SEGMENTS, IBS_CENTER, IBS_RADIUS = 1024, (0.4, 0.5), 0.1
+
+
+def ib_cylinder_jax(jfvm, n=IBS_N, solvers=BENCH, mu_scale=1.0):
+    """The JAX package's twin of the port's ``cases.ib_cylinder(n,
+    dtype="float64")`` (float64), with the given solver tolerances:
+    (flow, IBManager, stencil)."""
+    import jax.numpy as jnp
+    from fvm_tpu.geom import IBManager, IBType
+    from fvm_tpu.linear import AMG, BiCGStab
+    from fvm_tpu.models import FlowModel
+
+    mesh = jfvm.mesh.generate.quad_2d(n, n)
+    ibm = IBManager(mesh)
+    th = np.linspace(0, 2 * np.pi, IBS_SEGMENTS + 1)[:-1]
+    verts = np.stack([IBS_CENTER[0] + IBS_RADIUS * np.cos(th),
+                      IBS_CENTER[1] + IBS_RADIUS * np.sin(th)], 1)
+    elems = np.stack([np.arange(IBS_SEGMENTS),
+                      (np.arange(IBS_SEGMENTS) + 1) % IBS_SEGMENTS], 1)
+    t = ibm.update(verts, elems)
+    solid = t[: mesh.n_interior_cells] == IBType.SOLID
+    f = FlowModel(jfvm.mesh.build_device_mesh(mesh, dtype=jnp.float64))
+    f.options["verbose"] = False
+    f.vc["viscosity"] = 1.0 * mu_scale
+    amg_tol, amg_it = solvers["amg"]
+    f.options["pressureLinearSolver"] = AMG(
+        coarse_size=256, relative_tolerance=amg_tol, max_iterations=amg_it)
+    f.options["momentumLinearSolver"] = BiCGStab(
+        relative_tolerance=solvers["mom"][0],
+        max_iterations=solvers["mom"][1])
+    f.bc["left"].bc_type = "VelocityBoundary"
+    f.bc["left"]["specifiedXVelocity"] = 1.0
+    f.bc["right"].bc_type = "PressureBoundary"
+    f.bc["top"].bc_type = "NoSlipWall"
+    f.bc["bottom"].bc_type = "NoSlipWall"
+    f.init()
+    st = ibm.interpolation_stencil()
+    f.set_immersed_boundary(solid, [0.0, 0.0], solid_mask=solid, stencil=st)
+    return f, ibm, st
+
+
 def ib_cavity(JFlow, jfvm, n=20, mu=0.1):
     """The immersed-block cavity of ``tests/test_ibm.py:337``."""
     m = JFlow(jfvm.mesh.build_device_mesh(jfvm.mesh.generate.quad_2d(n, n)))
@@ -203,6 +252,17 @@ def main() -> int:
             hs.append([[r[1], r[2]] for r in m.advance(40)])
         print(f"immersed-block cavity, 40 SIMPLE outers: max rel "
               f"difference {spread(*hs):.3e}", flush=True)
+    if "ib_stencil" in cases:
+        for label, solvers in (("bench's solvers", BENCH),
+                               ("tight solvers", TIGHT)):
+            hs = []
+            for eps in (0.0, 1e-15):
+                f, _, _ = ib_cylinder_jax(jfvm, IBS_N, solvers, 1 + eps)
+                hs.append([[r[1], r[2]] for r in f.advance(IBS_OUTERS)])
+            print(f"IB-stencil cylinder {IBS_N}^2, {label}: {IBS_OUTERS} "
+                  f"SIMPLE outers max rel difference {spread(*hs):.3e}, "
+                  f"first 10 {spread(hs[0][:10], hs[1][:10]):.3e}",
+                  flush=True)
     if "channel" in cases:
         for label, solvers in (("bench's solvers", BENCH),
                                ("tight solvers", TIGHT)):

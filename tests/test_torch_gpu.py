@@ -1504,3 +1504,97 @@ def test_phonon_chunk_replay_equals_eager(cuda):
         h = m.advance(4)
         out.append(([r[1] for r in h], m.state["e"]))
     assert out[0][0] == out[1][0] and torch.equal(out[0][1], out[1][1])
+
+
+# ---- the immersed boundary's stencil rows and the material-point method
+
+def _widened_system(device, n=96):
+    """The hot cylinder's widened (n,) thermal system after its IB rows
+    (``cases.ib_hot_cylinder``), prepared: DIA offsets plus the stencil's
+    couplings as fallback entries."""
+    from fvm_tpu_torch.cases import ib_hot_cylinder
+
+    t = ib_hot_cylinder(n, device=device)
+    A, r = t._linearize(t.mesh, t.params, t.state, t._resolve_bcvals())
+    return A.prepare(), r
+
+
+@pytest.mark.parametrize("variant", dk.VARIANTS)
+def test_widened_ib_level_kernel_matches_plain(cuda, variant):
+    """The widened level's fused op: each variant against the plain version
+    on the card, bit for bit, the stencil alone and with its fallback
+    entries applied (deterministic algorithms: the fallback's index_add
+    adds with atomics); the solve's products launch the kernel."""
+    from fvm_tpu_torch.ops.dia import apply_fallback
+
+    A, r = _widened_system(cuda)
+    d = A.dia
+    assert d is not None and d.fb_rows.shape[0] > 0
+    x = torch.linspace(-1.0, 1.0, A.n, dtype=A.diag.dtype, device=cuda)
+    for mode in dk.MODES:
+        kw = _kw(mode, r)
+        y = dk._launch(d.offsets, mode, A.dia_coef, A.diag, x, kw.get("b"),
+                       kw.get("omega"), variant=variant)
+        y_ref = dk.dia_stencil_plain(d.offsets, mode, A.dia_coef, A.diag,
+                                     x, **kw)
+        with _deterministic():
+            pair = [apply_fallback(t, mode, A.diag, x, kw.get("omega"),
+                                   d.fb_rows, d.fb_cols, A.dia_fb_vals)
+                    for t in (y, y_ref)]
+        for got, want in ((y, y_ref), pair):
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) == 0.0, (variant, mode)
+    before = dict(dk.dia_stencil.launches)
+    A.mv(x)
+    assert sum(dk.dia_stencil.launches.values()) > sum(before.values())
+
+
+def test_ib_stencil_flow_cuda_matches_cpu(cuda):
+    """The flow cylinder's stencil rows on the card against the CPU: 10
+    SIMPLE outers at 48^2 in float64, histories to 1e-8 (the fallback's
+    atomics reorder sums); the chunk replay against the eager loop under
+    deterministic algorithms, bit for bit."""
+    from fvm_tpu_torch.cases import ib_cylinder
+
+    hists = []
+    for dev in (cuda, "cpu"):
+        f = ib_cylinder(48, device=dev, dtype="float64")
+        hists.append(np.array([h[1:] for h in f.advance(10)], float))
+    np.testing.assert_allclose(hists[0], hists[1], rtol=1e-8)
+    with _deterministic():
+        runs = []
+        for chunk in (0, 5):
+            f = ib_cylinder(48, device=cuda, dtype="float64")
+            f.options["outerChunk"] = chunk
+            for k in ("momentumTolerance", "continuityTolerance",
+                      "absoluteTolerance"):
+                f.options[k] = 0.0
+            runs.append(np.array([h[1:] for h in f.advance(10)], float))
+    assert np.array_equal(runs[0], runs[1])
+
+
+def test_mpm_substeps_cuda_match_cpu(cuda):
+    """``MPMSolver`` at 32^2 (the two-block collision), 20 substeps as one
+    graph replay on the card against the CPU's eager loop, float64: x, v,
+    F, C to 1e-12 of their scales (P2G adds with atomics on the card);
+    bit for bit under deterministic algorithms against the card's own
+    deterministic replay of another solver."""
+    from fvm_tpu_torch.cases import mpm_block
+
+    states = []
+    for dev in (cuda, "cpu"):
+        s = mpm_block(32, device=dev, dtype="float64")
+        s.advance(0.1, substeps=20)
+        states.append({k: v.cpu().numpy() for k, v in s.state.items()})
+    g, c = states
+    v_scale = float(np.abs(c["v"]).max())
+    for k, scale in (("x", 1.0), ("v", v_scale), ("F", 1.0),
+                     ("C", 32 * v_scale)):
+        np.testing.assert_allclose(g[k], c[k], rtol=0, atol=1e-12 * scale)
+    with _deterministic():
+        runs = []
+        for _ in range(2):
+            s = mpm_block(32, device=cuda, dtype="float64")
+            s.advance(0.1, substeps=20)
+            runs.append(s.state["x"].cpu().numpy())
+    assert np.array_equal(runs[0], runs[1])
