@@ -43,7 +43,7 @@ script exits non-zero before the last line):
                 float64 on the card and on the CPU: histories agree; the
                 graph replay equals the eager loop bit for bit under
                 deterministic algorithms;
-  8. setup3d  - the 96^3 float32 coupled 3D cavity built, host seconds per
+  8. setup3d  - the 80^3 float32 coupled 3D cavity built, host seconds per
                 stage (mesh, metrics, device mesh with its cf tables and
                 DIA analysis, models with their LS coefficients and greedy
                 AMG hierarchies: aggregation, level tables; first step),
@@ -54,7 +54,7 @@ script exits non-zero before the last line):
                 bf16} x {(n,), (n, 3)}, and on levels with fallback entries
                 the fused op with its fallback applied;
  10. main3d   - the 3D main path: warm-up + 10 timed outer steps of the
-                96^3 cavity, launches per step by mode, variant and level,
+                80^3 cavity, launches per step by mode, variant and level,
                 gather-ELL products by level, and the device profile; then
                 the graph replay of 10 steps as in phase 5 (residuals within
                 ``GRAPH3D_RTOL`` of the eager loop's: the greedy levels add
@@ -294,6 +294,21 @@ script exits non-zero before the last line):
                 ``prolong_flow_state`` 256^2 -> 1024^2 (host s, first
                 residual warm against cold); the cantilever stand-in and
                 the adjoint design for a few steps;
+ 32. dist     - the distributed runtime (``fvm_tpu_torch.parallel``): one
+                world of 4 gloo ranks on the card (fresh processes that
+                load the kernels phase 2 built) asserts that gloo takes
+                CUDA tensors for each collective, runs the
+                sharded golden ``cavity/JACOBI/np4`` (1e-8), the
+                64^2 float64 coupled cavity (against the same 4-rank run
+                on the CPU, beside it, at 1e-8), ``dryrun_multichip``
+                section 1 against the one-device run on the card (the JAX
+                package's assertions) and bench's 1024^2 float32 coupled
+                cavity over the 4 ranks (host set-up, ms per outer,
+                collectives, bytes and their share of the outer, launches
+                per outer by level, peak memory, every shard DIA level's
+                kernel against the plain version); a one-rank NCCL world
+                bit for bit against a one-rank gloo world; the kernel at
+                the shard fine level timed in this process alone;
 Each phase prints its seconds (``done`` lines).
 Kernel rows are timed as graph replays (``replay_ms``).  Then the
 ``kernels`` JSON line (with the converge path's launches in the
@@ -306,7 +321,8 @@ structures family's in the ``(mems gap, f64)``, ``(fracture, f64)`` and
 transport, f64)``, ``(charging electrostatics, f64)`` and ``(ke)`` rows;
 the kinetic DSA's in the ``(kinetic DSA, f64)`` rows; the phonon DSA's
 in the ``(phonon DSA, f64)`` rows; the widened IB-stencil levels' in the
-``(IB-stencil level)`` and ``(IB-stencil level, f64)`` rows)
+``(IB-stencil level)`` and ``(IB-stencil level, f64)`` rows; the
+distributed shard fine level's in the ``(dist shard of 4)`` rows)
 and, last, the device JSON line.
 
 It imports nothing of JAX and nothing of the JAX package ``fvm_tpu``.
@@ -344,10 +360,11 @@ GRAPH3D_RTOL = 3.5e-6
 U_BF16 = 2.0 ** -8
 BF16_RTOL = 8 * U_BF16
 OPTION_STEPS = 3
-# the 3D counterpart: a 96^3 hex cavity (884,736 cells) in float32 (128^3,
+# the 3D counterpart: an 80^3 hex cavity (512,000 cells) in float32 (128^3,
 # 2,097,152 cells, until the whole script's time limit needed the ~50 s of
-# host set-up and timing it cost over 96^3)
-MAIN3D_N = 96
+# host set-up and timing it cost over 96^3; 96^3 until phase 32 needed the
+# time)
+MAIN3D_N = 80
 SLICE3D_N = 16
 # kernel timing: calls per measurement, and operand copies cycled through
 # (4 x ~36 MB at the 2D fine level, beyond the 50 MB L2)
@@ -395,8 +412,8 @@ NEWTON_MODES = [
 ]
 NEWTON_RTOL = 1e-8
 NEWTON_ATOL = 1e-12  # as tests/test_golden_histories.py: round-off floors
-COUPLED_STEPS = 20
-ANDERSON_STEPS = 60
+COUPLED_STEPS = 10  # 20 until phase 32 needed the time
+ANDERSON_STEPS = 30  # 60 until phase 32 needed the time
 # the converge path at 1024^2 in phase 14: the float32 phase and the first
 # Newton step (the whole sequence to 1e-6 took 243 s of the card and five
 # Newton steps, measured: scripts/converge_run.py runs it; the phase ran
@@ -5145,9 +5162,11 @@ MPM_GATE_RTOL = 1e-12
 FMG_N = (256, 1024)
 FMG_OUTERS = 100
 # the cantilever stand-in at the demo's own cell size, (steps, outers)
-CANT_RUN = (3, 15)
-# demos/adjoint_design.py: (n, iterations)
-DESIGN_RUN = (128, 3)
+# (3 steps until phase 32 needed the time)
+CANT_RUN = (2, 15)
+# demos/adjoint_design.py: (n, iterations) (3 until phase 32 needed the
+# time)
+DESIGN_RUN = (128, 2)
 # the IB kernels rows' tags
 IB_ROW = " (IB-stencil level)"
 IB_ROW64 = " (IB-stencil level, f64)"
@@ -5741,6 +5760,210 @@ def ib_phase(device, smi):
     return rows
 
 
+# ---- 32. the distributed runtime ------------------------------------------
+
+# 4 gloo ranks on the one card (NCCL refuses two ranks on one GPU) and a
+# one-rank NCCL world; each world is fresh rank processes
+# (``parallel.run_ranks``) that load the kernels phase 2 built
+DIST_RANKS = 4
+DIST_TIMEOUT = 400.0  # s, each world: a hang fails the phase
+# the sharded golden held at 1e-8 (``python3 -m scripts.roundoff_sensitivity
+# --cases goldens_dist``: fvm_tpu's own cavity/JACOBI/np4 moves 5.0e-15
+# under a 1e-15 change; cavity/AMG/np4 7.5e-8, so it is not held here;
+# cavity/CG/np4, 2.9e-13, is held by the CPU tests)
+DIST_GOLDENS = ("JACOBI",)
+DIST_GOLDEN_RTOL = 1e-8
+DIST_SLICE = (64, 5)  # the 4-rank float64 coupled cavity: card against cpu
+DIST_MAIN = (1024, 1, 3)  # the float32 coupled cavity: n, warm-up, timed
+GOLDENS = "tests/goldens/histories.json"
+
+
+def _dist_levels(main):
+    """Per-level lines of the timed run: ``dia_stencil`` launches per
+    outer summed over the ranks, by (type/variant/mode) at each level's
+    rows, and the gather-ELL products."""
+    levels = main[0]["main/levels"]
+    out = []
+    for lvl, n, D, _ in levels:
+        per = {}
+        for r in main:
+            for k, v in zip(r["main/launch_keys"], r["main/launches"]):
+                tag, variant, mode, rows_k, _ = str(k).split("/")
+                if int(rows_k) == int(n):
+                    key = f"{variant}/{mode}"
+                    per[key] = per.get(key, 0.0) + float(v)
+        out.append(f"L{int(lvl)} {int(n)} rows DIA D={int(D)}: " + ", ".join(
+            f"{k} {v:g}" for k, v in sorted(per.items())))
+    gathers = {}
+    for r in main:
+        for k, v in zip(r["main/gather_keys"], r["main/gathers"]):
+            gathers[str(k)] = gathers.get(str(k), 0.0) + float(v)
+    out.append("gather-ELL (the Krylov products on the halo'd local "
+               "matrices): " + ", ".join(f"{k} {v:g}" for k, v in
+                                          sorted(gathers.items())))
+    return out
+
+
+def dist_phase(device, smi):
+    """Phase 32: the distributed runtime on the card; returns the
+    ``kernels`` rows of ``dia_stencil`` at the shard fine level."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fvm_tpu_torch import cases
+    from fvm_tpu_torch.ops import dia_kernel as dk
+    from fvm_tpu_torch.parallel import run_ranks
+
+    t_phase = time.time()
+    n_s, steps_s = DIST_SLICE
+    slice_kw = dict(n=n_s, steps=steps_s, dtype="float64")
+    n_m, warm_m, timed_m = DIST_MAIN
+    # every world starts at once; the card's 4-rank world waits, before
+    # its second probe and the timed 1024^2 cavity, for the sign that the
+    # other worlds and the one-device run have ended, so those run alone
+    # on the card
+    sign = tempfile.mkdtemp(prefix="fvm_dist_")
+    go = os.path.join(sign, "alone")
+    with ThreadPoolExecutor(4) as ex:
+        t0 = time.time()
+        card = ex.submit(run_ranks, "dist_suite_rank", DIST_RANKS, {
+            "cases": [("probe", "dist_probe_rank", {})]
+            + [(f, "dist_cavity_rank", {"solver": f}) for f in DIST_GOLDENS]
+            + [("slice", "dist_coupled_rank", slice_kw),
+               ("dryrun", "dist_cavity_rank", cases.dryrun_case()),
+               ("alone", "dist_wait_rank", {"path": go}),
+               ("probe2", "dist_probe_rank", {}),
+               ("main", "dist_timed_rank", dict(
+                   n=n_m, warm=warm_m, timed=timed_m, dtype="float32"))]},
+            device="cuda", backend="gloo", timeout=DIST_TIMEOUT)
+        try:
+            # the CPU side of the card-against-cpu history
+            cpu_slice = ex.submit(run_ranks, "dist_coupled_rank", DIST_RANKS,
+                                  slice_kw, device="cpu", backend="gloo",
+                                  timeout=DIST_TIMEOUT)
+            # one rank: NCCL against gloo, bit for bit under deterministic
+            # algorithms (the NCCL wiring; two ranks on one GPU it refuses)
+            one = {b: ex.submit(run_ranks, "dist_coupled_rank", 1, dict(
+                slice_kw, deterministic=True), device="cuda", backend=b,
+                timeout=DIST_TIMEOUT) for b in ("nccl", "gloo")}
+            single = cases.dist_dryrun_single(64, device)
+            single_s = time.time() - t0
+            one = {b: f.result()[0] for b, f in one.items()}
+            cpu = cpu_slice.result()
+            side_s = time.time() - t0
+        finally:
+            open(go, "w").close()
+        res = card.result()
+        card_s = time.time() - t0
+    shutil.rmtree(sign)
+    r0 = res[0]
+    log("dist", f"{DIST_RANKS} gloo ranks on {smi}: the card's world "
+        f"{card_s:.1f} s (start, probe, golden, slice, dryrun, the "
+        f"{n_m}^2 cavity); beside it, the one-device dryrun {single_s:.1f} "
+        f"s, and the cpu world and the one-rank NCCL and gloo worlds done "
+        f"at {side_s:.1f} s; the card's world then waited "
+        f"{float(r0['alone/waited_s']):.1f} s (rank 0) to run alone")
+    log("dist", "every collective (all_to_all, all_gather, all_reduce) took "
+        "CUDA tensors on gloo and gave its exact result on the card")
+    log("dist", f"ms per call (rank 0, {cases.PROBE_CALLS} calls of a "
+        f"{2 * DIST_RANKS}-element float64 tensor) at the world's start, "
+        "beside the other worlds: " + "; ".join(
+            f"{k[len('probe/'):]} {float(v):.3f}" for k, v in r0.items()
+            if k.startswith("probe/") and k != "probe/seconds")
+        + " | alone, before the timed outers: " + "; ".join(
+            f"{k[len('probe2/'):]} {float(v):.3f}" for k, v in r0.items()
+            if k.startswith("probe2/") and k != "probe2/seconds"))
+    log("dist", "seconds per case in the card's world (rank 0): " + ", ".join(
+        f"{k[:-len('/seconds')]} {float(v):.1f}" for k, v in r0.items()
+        if k.endswith("/seconds")))
+    with open(GOLDENS) as f:
+        goldens = json.load(f)
+    for fam in DIST_GOLDENS:
+        ref = np.array(goldens[f"cavity/{fam}/np4"])
+        got = r0[f"{fam}/hist"]
+        rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        log("dist", f"cavity/{fam}/np4 golden, 30 outers on {DIST_RANKS} "
+            f"ranks: max rel diff {rel:.3e} (tol {DIST_GOLDEN_RTOL:g})")
+        if not (got.shape == ref.shape and rel <= DIST_GOLDEN_RTOL):
+            raise AssertionError(f"dist: cavity/{fam}/np4 disagrees")
+    dry = cases.dryrun_compare({k[len("dryrun/"):]: v for k, v in
+                                r0.items() if k.startswith("dryrun/")},
+                               single)
+    log("dist", "dryrun_multichip section 1 (64^2, 40 outers, tight inner "
+        f"solves), 4 ranks against one device, both on the card: rel "
+        f"residual {dry['rel_dist']:.3e} / {dry['rel_single']:.3e} (< "
+        f"1.5e-2), history deviation {dry['hist_dev']:.3e} (< 1e-3), "
+        f"velocity deviation {dry['v_dev']:.3e} (< 1e-5) ok")
+    h_card, h_cpu = r0["slice/res"].tolist(), cpu[0]["res"].tolist()
+    worst = max_rel(h_card, h_cpu)
+    log("dist", f"{n_s}^2 float64 coupled cavity, {steps_s} steps on "
+        f"{DIST_RANKS} ranks: card {h_card[-1]} vs cpu {h_cpu[-1]}; max rel "
+        f"diff {worst:.3e} (tol {SLICE_RTOL:g})")
+    if not worst <= SLICE_RTOL:
+        raise AssertionError("dist: card and cpu worlds disagree")
+    same = one["nccl"]["res"].tolist() == one["gloo"]["res"].tolist()
+    log("dist", f"one rank, {n_s}^2 float64, {steps_s} steps, deterministic: "
+        f"NCCL {'bit-identical to' if same else 'DIFFERS from'} gloo "
+        f"({one['nccl']['res'][-1].tolist()})")
+    if not same:
+        raise AssertionError("dist: the NCCL world differs from gloo's")
+
+    # the timed float32 cavity: per rank and summed
+    main = [{k: v for k, v in r.items() if k.startswith("main/")}
+            for r in res]
+    stats = np.array([r["main/stats"] for r in main])
+    share = [float(r["main/stats"][4]) / (float(r["main/ms"]) / 1e3)
+             for r in main]
+    levels = main[0]["main/levels"]
+    errs = [float(row[3]) for r in main for row in r["main/levels"]]
+
+    def each(key, fmt):
+        return ", ".join(format(float(r[key]), fmt) for r in main)
+
+    log("dist", f"{n_m}^2 float32 coupled cavity on {DIST_RANKS} gloo ranks "
+        f"({smi}): host set-up per rank {each('main/setup_s', '.2f')} s; "
+        f"{timed_m} timed outers after {warm_m}: ms per outer by rank "
+        f"{each('main/ms', '.1f')}; per outer and rank {stats[0, 0]:g} "
+        f"all_to_all, {stats[0, 1]:g} all_reduce; "
+        f"{stats[:, 3].sum() / 1e6:.3f} MB sent per outer over all ranks; "
+        f"share of the outer inside collectives (host timers, after a "
+        f"device wait) "
+        + ", ".join(f"{100 * v:.1f}%" for v in share)
+        + f"; peak memory per rank {each('main/peak_gib', '.2f')} GiB; "
+        f"residuals {main[0]['main/res'][-1].tolist()}")
+    for line in _dist_levels(res):
+        log("dist", "launches per outer, all ranks: " + line)
+    log("dist", f"every rank's shard hierarchy ({len(levels)} DIA levels, "
+        f"rows {[int(v) for v in levels[:, 1]]}): every variant and mode "
+        f"against the plain version on the level's own operator, max abs "
+        f"err {max(errs):g} (need 0)")
+    if max(errs) != 0.0:
+        raise AssertionError("dist: dia_stencil disagrees at a shard level")
+    launches = {m: 0 for m in dk.MODES}
+    for r in main:
+        for k, v in zip(r["main/launch_keys"], r["main/launches"]):
+            launches[str(k).split("/")[2]] += float(v) * timed_m
+    for mode in ("residual", "jacobi"):
+        if not launches[mode]:
+            raise AssertionError(f"dist: dia_stencil {mode} never launched "
+                                 f"on the ranks' shard levels")
+    # the kernel at the shard fine level, in this process alone on one
+    # rank's operator shape (not under four contending ranks)
+    n_f, offs = int(levels[0, 1]), tuple(int(v) for v in
+                                         main[0]["main/level_offsets"])
+    errors = {}
+    kernel_vs_plain(f"{n_m}^2 shard fine level (of {DIST_RANKS})", n_f, offs,
+                    device, errors, dtypes=("float32", "float64"))
+    rows = time_modes(f" (dist shard of {DIST_RANKS})", n_f, offs,
+                      (("residual", 1), ("jacobi", 1)),
+                      {m: int(v) for m, v in launches.items()}, errors,
+                      "float32")
+    log("dist", f"phase 32 in {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def describe(shapes):
     return "; ".join(
         f"L{i} {s.rows} rows " + (
@@ -6068,7 +6291,12 @@ def main() -> int:
     # ---- 31. the immersed boundary's stencil rows, MPM, FMG, IB demos -----
     t31 = time.time()
     kernels.extend(extras_phases(device, smi, (31,)))
-    log("done", f"phase 31 in {time.time() - t31:.1f} s; phases 1-31 in "
+    log("done", f"phase 31 in {time.time() - t31:.1f} s")
+
+    # ---- 32. the distributed runtime --------------------------------------
+    t32 = time.time()
+    kernels.extend(extras_phases(device, smi, (32,)))
+    log("done", f"phase 32 in {time.time() - t32:.1f} s; phases 1-32 in "
         f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6077,7 +6305,7 @@ def main() -> int:
 
 
 def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
-    """Phases 18-31 (those in ``phases``), each timed; returns their
+    """Phases 18-32 (those in ``phases``), each timed; returns their
     ``kernels`` rows.  Phase 22 starts from ``cavity_state``."""
     errors, rows = {}, []
     for k, phase in ((18, lambda: rows.append(
@@ -6095,7 +6323,8 @@ def extras_phases(device, smi, phases=(18, 19, 20), cavity_state=None):
             (28, lambda: rows.extend(battery_phase(device, smi))),
             (29, lambda: rows.extend(kinetic_phase(device, smi))),
             (30, lambda: rows.extend(phonon_phase(device, smi))),
-            (31, lambda: rows.extend(ib_phase(device, smi)))):
+            (31, lambda: rows.extend(ib_phase(device, smi))),
+            (32, lambda: rows.extend(dist_phase(device, smi)))):
         if k in phases:
             t0 = time.time()
             phase()

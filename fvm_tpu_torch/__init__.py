@@ -23,7 +23,8 @@ Quick start::
 """
 
 from .config import config, set_default_dtype, default_dtype, resolve_device
-from .exceptions import FVMError, MeshError, SolverError, ConfigError, DeviceError
+from .exceptions import (FVMError, MeshError, SolverError, ConfigError,
+                         DeviceError, RankError)
 
 from . import mesh
 from . import ops

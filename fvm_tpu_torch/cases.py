@@ -32,7 +32,8 @@ import time
 import numpy as np
 import torch
 
-from .linear import AMG, BiCGStab, ILU0Solver, JacobiSolver, SpikeSolver
+from .linear import (AMG, CG, GMRES, BiCGStab, ILU0Solver, JacobiSolver,
+                     SpikeSolver)
 from .mesh import build_device_mesh, compute_geometry
 from .mesh.generate import extrude, hex_3d, quad_2d, tri_2d
 from .models import ElectricModel, FlowModel, ThermalModel
@@ -47,19 +48,21 @@ _WALLS = {
 }
 
 
-def cavity_models(dmesh, amg_precision=None, solver=None):
+def cavity_models(dmesh, amg_precision=None, solver=None, partition=None):
     """(flow, thermal) of the bench configuration on a quad or hex cavity
     device mesh, initialised, residual norms kept on the device
     (``residualSync`` False).  ``amg_precision="bf16"`` runs both AMG
     cycles in bfloat16 (``bench.py``'s ``FVM_BENCH_AMG_PREC=bf16``);
     ``solver``, a function of no argument, makes the pressure and the
-    thermal solver in place of bench's AMG (``cavity_family``)."""
+    thermal solver in place of bench's AMG (``cavity_family``).  With
+    ``partition``, ``dmesh`` is a rank's local mesh and both models run
+    on it (the AMG solves on the shard-local hierarchy)."""
     if solver is None:
         solver = functools.partial(
             AMG, coarse_size=256, relative_tolerance=1e-3, max_iterations=6,
             precision=amg_precision)
     walls, lid, hot, cold = _WALLS[dmesh.dim]
-    flow = FlowModel(dmesh)
+    flow = FlowModel(dmesh, partition=partition)
     flow.options["verbose"] = False
     flow.vc["viscosity"] = 0.01
     for side in walls:
@@ -70,7 +73,7 @@ def cavity_models(dmesh, amg_precision=None, solver=None):
         relative_tolerance=1e-2, max_iterations=10)
     flow.init()
 
-    thermal = ThermalModel(dmesh)
+    thermal = ThermalModel(dmesh, partition=partition)
     thermal.options["verbose"] = False
     thermal.options["convective"] = True
     thermal.options["linearSolver"] = solver()
@@ -181,7 +184,7 @@ def coupled_steps(flow, thermal, k: int):
         runner = Runner(functools.partial(
             _coupled_fn, (flow._step, flow.mesh, flow.params),
             (thermal._step, thermal.mesh, thermal.params)), k,
-            flow.mesh.device)
+            flow.mesh.device, flow.mesh)
         runner.thermal_step = thermal._step
         flow._runners[key] = runner
     out, res = runner({
@@ -1931,3 +1934,519 @@ def cantilever_unsteady(f, solid, n_steps: int,
         t += CANT_TIME_STEP
         f.updateTime()
     return np.asarray(hist)
+
+
+# ---------------------------------------------------------------------------
+# distributed runs: rank functions for ``parallel.run_ranks`` (each takes
+# its ``ShardGroup`` first and returns a dict of arrays) and host wrappers.
+# Every rank builds the same ``Partition`` from the same host mesh and runs
+# the model on its local mesh (``Partition.local_mesh``).
+
+_SOLVERS = {"AMG": AMG, "BiCGStab": BiCGStab, "CG": CG,
+            "JacobiSolver": JacobiSolver, "GMRES": GMRES}
+
+# the pressure solvers of the sharded goldens (tests/test_golden_histories
+# .py:44-86): AMG, BCGStab, CG, JACOBI
+GOLDEN_SOLVERS = {
+    "AMG": {"kind": "AMG", "coarse_size": 16, "relative_tolerance": 1e-3,
+            "max_iterations": 30},
+    "BCGStab": {"kind": "BiCGStab", "pre": {"kind": "JacobiSolver",
+                                            "sweeps": 3},
+                "relative_tolerance": 1e-3, "max_iterations": 200},
+    "CG": {"kind": "CG", "pre": {"kind": "JacobiSolver", "sweeps": 3},
+           "relative_tolerance": 1e-3, "max_iterations": 200},
+    "JACOBI": {"kind": "JacobiSolver", "sweeps": 60},
+}
+
+# dryrun_multichip section 1 (__graft_entry__.py:89-150): tight inner solves
+DRYRUN_PRESSURE = {"kind": "AMG", "coarse_size": 16,
+                   "relative_tolerance": 1e-12, "max_iterations": 200}
+DRYRUN_MOMENTUM = {"kind": "BiCGStab", "pre": {"kind": "JacobiSolver",
+                                               "sweeps": 2},
+                   "relative_tolerance": 1e-12, "max_iterations": 2000}
+
+
+def make_solver(spec):
+    """A solver from a plain spec, which a rank receives pickled: a golden
+    family name (``GOLDEN_SOLVERS``), or a dict with ``"kind"`` (AMG,
+    BiCGStab, CG, JacobiSolver, GMRES), its keyword arguments, ``"pre"``
+    the preconditioner's spec and ``"exit_every"``."""
+    spec = dict(GOLDEN_SOLVERS[spec] if isinstance(spec, str) else spec)
+    cls = _SOLVERS[spec.pop("kind")]
+    pre = spec.pop("pre", None)
+    every = spec.pop("exit_every", None)
+    if pre is not None:
+        spec["preconditioner"] = make_solver(pre)
+    s = cls(**spec)
+    if every:
+        s.exit_every = every
+    return s
+
+
+def host_mesh(spec):
+    """A host mesh from ``(generator, dims)``: quad_2d, tri_2d or hex_3d."""
+    gen, dims = spec
+    return {"quad_2d": quad_2d, "tri_2d": tri_2d, "hex_3d": hex_3d}[gen](
+        *dims)
+
+
+def dist_local(group, mesh=("quad_2d", (32, 32)), dtype="float64",
+               halo_depth=1):
+    """(partition, the rank's local mesh) of ``mesh`` over the group."""
+    from .parallel import Partition
+
+    part = Partition(host_mesh(mesh), group.world, dtype=dtype,
+                     halo_depth=halo_depth)
+    return part, part.local_mesh(group.rank, group.device, group)
+
+
+def setup_thermal(t, bcs: str = "demo"):
+    """The thermal boundary conditions of a named case: ``"demo"``
+    (``demos/testThermalParallel.py``: 400 on the left, convective h 10
+    to 300 on the right, symmetry top and bottom), ``"parallel"``
+    (``tests/test_parallel.py:48-58``: h 5, a heat flux of 2 on the top)
+    or ``"golden"`` (400 left, 300 right, symmetry top and bottom)."""
+    t.options["verbose"] = False
+    t.bc["left"].bc_type = "SpecifiedTemperature"
+    t.bc["left"]["specifiedTemperature"] = 400.0
+    t.bc["bottom"].bc_type = "Symmetry"
+    t.bc["top"].bc_type = "Symmetry"
+    if bcs == "golden":
+        t.bc["right"].bc_type = "SpecifiedTemperature"
+        t.bc["right"]["specifiedTemperature"] = 300.0
+        return
+    t.bc["right"].bc_type = "Convective"
+    t.bc["right"]["heatTransferCoefficient"] = 10.0 if bcs == "demo" else 5.0
+    t.bc["right"]["farFieldTemperature"] = 300.0
+    if bcs == "parallel":
+        t.bc["top"].bc_type = "SpecifiedHeatFlux"
+        t.bc["top"]["specifiedHeatFlux"] = 2.0
+
+
+def setup_cavity(f, viscosity=0.01, density=None, lid="top"):
+    """The lid-driven cavity: no-slip walls, the lid moving at u = 1."""
+    f.options["verbose"] = False
+    if density is not None:
+        f.vc["density"] = density
+    f.vc["viscosity"] = viscosity
+    for side in ("left", "right", "bottom", "top"):
+        f.bc[side].bc_type = "NoSlipWall"
+    f.bc[lid]["specifiedXVelocity"] = 1.0
+
+
+def _amg_kind(solver):
+    for s in (solver, getattr(solver, "preconditioner", None)):
+        ds = getattr(s, "_dist_setup", None)
+        if ds is not None:
+            return ds["kind"]
+    return ""
+
+
+def dist_thermal_rank(group, mesh=("quad_2d", (64, 64)), bcs="demo",
+                      niter=20, solver=None, dtype="float64", fluxes=False):
+    """A thermal run on the rank's shard (``demos/testThermalParallel.py``
+    by default; ``solver`` a ``make_solver`` spec); returns the outer
+    history, the global temperature and (``fluxes``) the four walls' heat
+    flux integrals."""
+    part, lm = dist_local(group, mesh, dtype)
+    t = ThermalModel(lm, partition=part)
+    if solver is not None:
+        t.options["linearSolver"] = make_solver(solver)
+    setup_thermal(t, bcs)
+    t.init()
+    hist = t.advance(niter)
+    out = {"hist": np.array([r[1] for r in hist]), "T": t.getTemperature(),
+           "amg": np.array(_amg_kind(t.options["linearSolver"]))}
+    if fluxes:
+        out["fluxes"] = np.array([t.getHeatFluxIntegral(g) for g in
+                                  ("left", "right", "top", "bottom")])
+    return out
+
+
+def dist_cavity_rank(group, n=32, solver="AMG", niter=30, viscosity=0.1,
+                     density=1.0, momentum=None, dtype="float64",
+                     integrals=False):
+    """The lid-driven cavity on the rank's shard of ``quad_2d(n, n)``
+    (``demos/testFlowParallel.py``; by default the goldens' cav32
+    configuration: viscosity 0.1, density 1, 30 outers, the pressure
+    solver of the golden family ``solver``); returns the (momentum,
+    continuity) history, the global velocity and pressure and
+    (``integrals``) the walls' mass and momentum flux integrals."""
+    part, lm = dist_local(group, ("quad_2d", (n, n)), dtype)
+    f = FlowModel(lm, partition=part)
+    setup_cavity(f, viscosity, density)
+    if solver is not None:
+        f.options["pressureLinearSolver"] = make_solver(solver)
+    if momentum is not None:
+        f.options["momentumLinearSolver"] = make_solver(momentum)
+    f.init()
+    hist = f.advance(niter)
+    out = {"hist": np.array([[r[1], r[2]] for r in hist]),
+           "velocity": f.getVelocity(), "pressure": f.getPressure(),
+           "amg": np.array(_amg_kind(f.options["pressureLinearSolver"]))}
+    if integrals:
+        walls = ("top", "bottom", "left", "right")
+        out["mass"] = np.array([f.getMassFluxIntegral(g) for g in walls])
+        out["momentum"] = np.stack([f.getMomentumFluxIntegral(g)
+                                    for g in walls])
+    return out
+
+
+def dist_thermal(n: int, ranks: int, device=None, dtype="float64",
+                 niter: int = 20, backend=None, timeout=300.0, **kw):
+    """``demos/testThermalParallel.py`` over ``ranks`` ranks: rank 0's
+    result of ``dist_thermal_rank`` on ``quad_2d(n, n)``."""
+    from .parallel import run_ranks
+
+    return run_ranks("dist_thermal_rank", ranks, dict(
+        mesh=("quad_2d", (n, n)), niter=niter, dtype=dtype, **kw),
+        device=device or "cuda", backend=backend, timeout=timeout)[0]
+
+
+def dist_cavity(n: int, ranks: int, solver="AMG", device=None,
+                dtype="float64", niter: int = 30, backend=None,
+                timeout=600.0, **kw):
+    """The cavity (``dist_cavity_rank``) over ``ranks`` ranks: rank 0's
+    result."""
+    from .parallel import run_ranks
+
+    return run_ranks("dist_cavity_rank", ranks, dict(
+        n=n, solver=solver, niter=niter, dtype=dtype, **kw),
+        device=device or "cuda", backend=backend, timeout=timeout)[0]
+
+
+def dist_dryrun_single(n: int = 64, device=None, dtype="float64",
+                       niter: int = 40):
+    """The single-device side of ``dist_dryrun``: the same cavity and
+    solvers on one device (the eager solves read their activity back
+    every 10 trips and stop once frozen: the same result)."""
+    f = FlowModel(build_device_mesh(quad_2d(n, n), dtype=dtype,
+                                    device=device))
+    setup_cavity(f, 0.01)
+    f.options["pressureLinearSolver"] = make_solver(
+        dict(DRYRUN_PRESSURE, exit_every=10))
+    f.options["momentumLinearSolver"] = make_solver(
+        dict(DRYRUN_MOMENTUM, exit_every=10))
+    f.init()
+    hist = f.advance(niter)
+    return (np.array([[float(r[1]), float(r[2])] for r in hist]),
+            f.getVelocity())
+
+
+def dryrun_case(n: int = 64, niter: int = 40, dtype="float64") -> dict:
+    """``dist_cavity_rank``'s arguments for ``dist_dryrun``."""
+    return dict(n=n, solver=DRYRUN_PRESSURE, momentum=DRYRUN_MOMENTUM,
+                niter=niter, viscosity=0.01, density=None, dtype=dtype)
+
+
+def dist_dryrun(n: int = 64, ranks: int = 4, device=None, dtype="float64",
+                niter: int = 40, backend=None, timeout=900.0) -> dict:
+    """``__graft_entry__.dryrun_multichip`` section 1: the 64^2 cavity over
+    40 outers with tight inner solves, on ``ranks`` ranks and on one
+    device, with the JAX package's own assertions (``dryrun_compare``).
+    Returns the four numbers."""
+    from .parallel import run_ranks
+
+    d = run_ranks("dist_cavity_rank", ranks, dryrun_case(n, niter, dtype),
+                  device=device or "cuda", backend=backend,
+                  timeout=timeout)[0]
+    return dryrun_compare(d, dist_dryrun_single(n, device, dtype, niter))
+
+
+def dryrun_compare(d: dict, single) -> dict:
+    """The JAX package's assertions of ``dryrun_multichip`` section 1 on a
+    distributed result ``d`` (``dist_cavity_rank``'s) and the single-device
+    (history, velocity): both relative residuals below 1.5e-2, the outer
+    histories within 1e-3 of each other (relative, entry by entry) and the
+    velocities within 1e-5.  Returns the four numbers."""
+    h1, V1 = single
+    hd = d["hist"]
+    out = {
+        "rel_dist": float(hd[-1, 0] / hd[0, 0]),
+        "rel_single": float(h1[-1, 0] / h1[0, 0]),
+        "hist_dev": float(np.max(np.abs(hd[:, 0] - h1[:, 0])
+                                 / np.maximum(np.abs(h1[:, 0]), 1e-300))),
+        "v_dev": float(np.abs(d["velocity"] - V1).max()),
+    }
+    assert np.isfinite(out["rel_dist"]) and out["rel_dist"] < 1.5e-2, out
+    assert np.isfinite(out["rel_single"]) and out["rel_single"] < 1.5e-2, out
+    assert out["hist_dev"] < 1e-3, out
+    assert out["v_dev"] < 1e-5, out
+    return out
+
+
+def dist_coupled_models(group, n: int, dtype="float32"):
+    """(partition, flow, thermal) of bench's coupled cavity
+    (``cavity_models``) on the rank's shard of ``quad_2d(n, n)``, both
+    models on one local mesh."""
+    part, lm = dist_local(group, ("quad_2d", (n, n)), dtype)
+    flow, thermal = cavity_models(lm, partition=part)
+    return part, flow, thermal
+
+
+def dist_coupled_rank(group, n=64, steps=3, dtype="float64",
+                      deterministic=False):
+    """``steps`` coupled outer steps (flow step, mass-flux handoff,
+    thermal step: ``coupled_step``) of bench's cavity on the rank's
+    shard (``deterministic``: under PyTorch's deterministic algorithms);
+    returns the (steps, 3) residual norms and the global fields."""
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+    _, flow, thermal = dist_coupled_models(group, n, dtype)
+    res = [[float(v) for v in coupled_step(flow, thermal)]
+           for _ in range(steps)]
+    return {"res": np.array(res), "velocity": flow.getVelocity(),
+            "pressure": flow.getPressure(), "T": thermal.getTemperature()}
+
+
+def dist_coupled_cavity(n: int, ranks: int, device=None, dtype="float32",
+                        steps: int = 3, backend=None, timeout=600.0):
+    """Bench's coupled cavity over ``ranks`` ranks (``dist_coupled_rank``):
+    rank 0's result."""
+    from .parallel import run_ranks
+
+    return run_ranks("dist_coupled_rank", ranks, dict(
+        n=n, steps=steps, dtype=dtype), device=device or "cuda",
+        backend=backend, timeout=timeout)[0]
+
+
+def dist_coupled_step_rank(group, n, flow_state, thermal_state,
+                           dtype="float64"):
+    """One coupled step of bench's cavity on the rank's shard, started
+    from stacked ``(S, ...)`` states (the JAX package's sharded models',
+    as numpy: ``interop.shard_state``); returns the rank's local states
+    after it, keyed ``flow:<key>`` and ``thermal:<key>``."""
+    from .interop import load_model_state, shard_state
+
+    _, flow, thermal = dist_coupled_models(group, n, dtype)
+    load_model_state(flow, shard_state(flow_state, group.rank))
+    load_model_state(thermal, shard_state(thermal_state, group.rank))
+    res = [float(v) for v in coupled_step(flow, thermal)]
+    out = {"res": np.array(res)}
+    out.update({f"flow:{k}": v for k, v in flow.state.items()})
+    out.update({f"thermal:{k}": v for k, v in thermal.state.items()})
+    return out
+
+
+def dist_species_rank(group, n=12, niter=8, dtype="float64"):
+    """``tests/test_parallel.py:107-131``'s species case on the rank's
+    shard; returns the history, the global mass fraction and the left and
+    right walls' flux integrals."""
+    from .models import SpeciesModel
+
+    part, lm = dist_local(group, ("quad_2d", (n, n)), dtype)
+    m = SpeciesModel(lm, partition=part)
+    m.options["verbose"] = False
+    m.bc["left"].bc_type = "SpecifiedMassFraction"
+    m.bc["left"]["specifiedMassFraction"] = 1.0
+    m.bc["right"].bc_type = "SpecifiedMassFraction"
+    m.bc["bottom"].bc_type = "Symmetry"
+    m.bc["top"].bc_type = "Symmetry"
+    m.init()
+    hist = m.advance(niter)
+    return {"hist": np.array([r[1] for r in hist]),
+            "mf": m.getMassFraction(0),
+            "fluxes": np.array([m.getMassFluxIntegral(g)
+                                for g in ("left", "right")])}
+
+
+def dist_electric_rank(group, n=10, niter=6, dtype="float64"):
+    """``tests/test_parallel.py:134-156``'s electrostatics case on the
+    rank's shard; returns the history and the global potential."""
+    part, lm = dist_local(group, ("quad_2d", (n, n)), dtype)
+    m = ElectricModel(lm, partition=part)
+    m.options["verbose"] = False
+    m.bc["left"].bc_type = "SpecifiedPotential"
+    m.bc["left"]["specifiedPotential"] = 100.0
+    m.bc["right"].bc_type = "SpecifiedPotential"
+    m.bc["bottom"].bc_type = "Symmetry"
+    m.bc["top"].bc_type = "Symmetry"
+    m.init()
+    hist = m.advance(niter)
+    return {"hist": np.array([r[1] for r in hist]),
+            "phi": m.getPotential()}
+
+
+def dist_halo_rank(group, mesh=("quad_2d", (12, 8)), halo_depth=1, seed=0,
+                   dtype="float64"):
+    """The halo exchange on the rank's shard: ``x`` (random, per rank),
+    ``Ex`` its exchange, ``y`` (random) and ``ETy`` the transposed
+    exchange, ``grad`` reverse mode of <E x, y> (it must equal ``ETy``),
+    and ``restored``: a global field scattered, its halo band zeroed and
+    refreshed by one exchange."""
+    from .ops.halo import halo_exchange, halo_exchange_transpose
+
+    part, lm = dist_local(group, mesh, dtype, halo_depth=halo_depth)
+    dev, dt = lm.device, lm.dtype
+    rng = np.random.default_rng(seed + 1000 * group.rank)
+    x = torch.from_numpy(rng.standard_normal((lm.n_cells, 2))).to(dev, dt)
+    y = torch.from_numpy(rng.standard_normal((lm.n_cells, 2))).to(dev, dt)
+    ex = halo_exchange(x, lm.halo, group)
+    ety = halo_exchange_transpose(y, lm.halo, group)
+    xg = x.clone().requires_grad_(True)
+    (halo_exchange(xg, lm.halo, group) * y).sum().backward()
+    g = np.random.default_rng(seed).standard_normal(part.mesh.n_cells)
+    loc = torch.from_numpy(part.scatter_cells(g, group.rank)).to(dev, dt)
+    loc[part.n_owned_local:] = 0.0
+    return {"x": x, "Ex": ex, "y": y, "ETy": ety, "grad": xg.grad,
+            "restored": halo_exchange(loc, lm.halo, group)}
+
+
+COLLECTIVES = ("all_to_all", "all_reduce", "all_gather")
+PROBE_CALLS = 50
+
+
+def dist_probe_rank(group):
+    """Each collective on tensors on this group's device (``ops/halo.py``
+    takes them where they are): one call of each, held to its exact
+    result on that device, so a backend that refuses one fails here.
+    Returns the ms per call (``PROBE_CALLS`` calls of a small tensor) of
+    ``all_to_all`` and ``all_gather``, of the port's ``all_reduce``
+    (``halo._small_reduce``, through host memory) and of the backend's
+    own ``all_reduce``."""
+    import torch.distributed as dist
+
+    from .ops import halo
+
+    w, dev = group.world, group.device
+    x = torch.arange(2 * w, dtype=torch.float64, device=dev)
+
+    def backend_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group.pg)
+        return y
+
+    calls = {"all_to_all": lambda: halo.all_to_all(x, group),
+             "all_gather": lambda: halo.all_gather(x, group),
+             "all_reduce (port: host all_to_all)":
+                 lambda: halo.all_reduce(x, group),
+             "all_reduce (backend)": backend_reduce}
+    want = {"all_to_all": x[2 * group.rank:2 * group.rank + 2].repeat(w),
+            "all_gather": x.expand(w, -1),
+            "all_reduce (port: host all_to_all)": w * x,
+            "all_reduce (backend)": w * x}
+    for op, fn in calls.items():
+        got, ref = fn(), want[op]
+        if not (got.device == dev and torch.equal(got, ref)):
+            raise AssertionError(f"{group.backend} {op} on {dev} tensors "
+                                 f"gave {got.tolist()} on {got.device}, "
+                                 f"expected {ref.tolist()}")
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        for _ in range(PROBE_CALLS):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / PROBE_CALLS
+
+    return {op: ms(fn) for op, fn in calls.items()}
+
+
+def dist_timed_rank(group, n=1024, warm=1, timed=3, dtype="float32"):
+    """Bench's coupled cavity on the rank's shard of ``quad_2d(n, n)``:
+    host set-up, ``warm`` outers, then ``timed`` outers measured (wall ms
+    per outer, collectives and bytes per outer, host seconds inside the
+    collectives, ``dia_stencil`` launches and gather-ELL products by
+    shape, peak device memory); then every DIA level of the
+    thermal system's shard hierarchy, each mode and kernel variant
+    against the plain version on seeded inputs (max abs error by level)."""
+    from .ops import dia_kernel as dk, ell, halo
+
+    dev = group.device
+    t0 = time.perf_counter()
+    _, flow, thermal = dist_coupled_models(group, n, dtype)
+    setup_s = time.perf_counter() - t0
+    for _ in range(warm):
+        coupled_step(flow, thermal)
+    _sync(dev)
+    dk.reset_launches()
+    ell.gather_ell_ops.clear()
+    halo.reset_stats()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = [coupled_step(flow, thermal) for _ in range(timed)]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    stats, shapes = dict(halo.stats), dict(dk.dia_stencil.shapes)
+    gathers = dict(ell.gather_ell_ops)
+    out = {
+        "ms": 1e3 * wall / timed, "setup_s": setup_s,
+        "res": np.array([[float(v) for v in r] for r in res]),
+        "stats": np.array([stats[k] / timed for k in COLLECTIVES]
+                          + [stats["bytes"] / timed,
+                             stats["seconds"] / timed]),
+        "launch_keys": np.array(["/".join(map(str, k)) for k in shapes]),
+        "launches": np.array(list(shapes.values())) / timed,
+        "gather_keys": np.array(["/".join(map(str, k)) for k in gathers]),
+        "gathers": np.array(list(gathers.values())) / timed,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else 0.0),
+    }
+    amg = thermal.options["linearSolver"]
+    if getattr(amg, "_dist_setup", None) is not None:
+        A, _ = thermal._linearize(thermal.mesh, thermal.params,
+                                  thermal.state, thermal._resolve_bcvals())
+        _, mats, _, _ = amg.dist_hierarchy(A)
+        rows = []
+        for lvl, m in enumerate(mats[:-1]):
+            if not hasattr(m, "offsets"):
+                continue
+            g = torch.Generator(device=dev).manual_seed(lvl)
+            x = torch.randn(m.n, generator=g, device=dev, dtype=m.diag.dtype)
+            b = torch.randn(m.n, generator=g, device=dev, dtype=m.diag.dtype)
+            err = 0.0
+            for mode in dk.MODES:
+                kw = {"omega": 0.7} if mode == "jacobi" else {}
+                bb = None if mode == "mv" else b
+                want = dk.dia_stencil_plain(m.offsets, mode, m.coef, m.diag,
+                                            x, b=bb, **kw)
+                for variant in (dk.variants(x.dtype) if x.is_cuda
+                                else (None,)):
+                    got = (dk._launch(m.offsets, mode, m.coef, m.diag, x, bb,
+                                      kw.get("omega"), variant=variant)
+                           if x.is_cuda else dk.dia_stencil(
+                               m.offsets, mode, m.coef, m.diag, x, b=bb,
+                               **kw))
+                    err = max(err, float((got - want).abs().max()))
+            rows.append([lvl, m.n, len(m.offsets), err])
+        out["levels"] = np.array(rows)
+        out["level_offsets"] = np.array(mats[0].offsets)
+    return out
+
+
+def dist_imports_rank(group):
+    """The packages of the JAX side that this rank process has imported
+    (``"bad"``: none, since a rank runs where jax is absent)."""
+    import sys
+
+    bad = sorted({m.split(".")[0] for m in sys.modules}
+                 & {"jax", "jaxlib", "flax", "fvm_tpu"})
+    return {"bad": np.array(bad, dtype=str)}
+
+
+def dist_wait_rank(group, path):
+    """Wait until the file ``path`` exists (the launching process's sign
+    that its other work on the device has ended), then a barrier, so the
+    cases after this one run alone.  Returns the seconds waited."""
+    import os
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        time.sleep(0.05)
+    dist.barrier(group=group.pg)
+    return {"waited_s": time.perf_counter() - t0}
+
+
+def dist_suite_rank(group, cases):
+    """Several rank functions of this module in one world, in turn:
+    ``cases`` is a list of (name, rank function name, kwargs); each
+    result's keys are prefixed ``<name>/``."""
+    out = {}
+    for name, fn, kw in cases:
+        t0 = time.perf_counter()
+        for k, v in globals()[fn](group, **kw).items():
+            out[f"{name}/{k}"] = v
+        out[f"{name}/seconds"] = time.perf_counter() - t0
+    return out

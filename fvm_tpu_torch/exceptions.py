@@ -19,3 +19,8 @@ class ConfigError(FVMError):
 
 class DeviceError(FVMError):
     """The requested device is unavailable or unsupported."""
+
+
+class RankError(FVMError):
+    """A rank of a distributed run failed, or the run passed its time
+    limit (``parallel.run_ranks``)."""

@@ -6,6 +6,11 @@ JAX package's model state) and puts each entry on the port model's device,
 floating entries in the model mesh's dtype, after checking the key sets
 and the shapes against the model's own (an initialised model defines
 them).  The tests use it to start both packages from the same state.
+
+``shard_state`` takes a row of a distributed state: the JAX package's
+sharded models keep every state entry stacked ``(S, n, ...)`` over the
+shards, and rank ``r`` of the port holds row ``r`` (the same padded local
+layout); ``stack_states`` is its inverse.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ def _load(kind: str, have: dict, given: dict, mesh, optional=()) -> dict:
         )
     out = {}
     for k, v in given.items():
-        a = np.asarray(v)
+        a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+             else np.asarray(v))
         ref = have.get(k)
         if ref is None:
             size, akind = IB_PARAMS[k]
@@ -110,3 +116,22 @@ def load_model_state(model, state: dict, params: dict | None = None) -> None:
                        optional=IB_PARAMS)
     model.state, model.params = new_state, new_params
     model._drop_compiled()
+
+
+def shard_state(stacked: dict, rank: int, device=None) -> dict:
+    """Rank ``rank``'s local tensors of a stacked ``(S, n, ...)`` state or
+    params dict (numpy, e.g. ``np.asarray`` of a sharded JAX model's
+    ``state``), on ``device`` (default: the CPU; ``load_model_state``
+    moves them to the model's device and dtype)."""
+    return {k: torch.from_numpy(np.array(np.asarray(v)[rank], order="C")).to(
+        device or "cpu") for k, v in stacked.items()}
+
+
+def stack_states(states) -> dict:
+    """``shard_state``'s inverse: the ranks' local state dicts (tensors or
+    arrays, in rank order) stacked ``(S, n, ...)`` as numpy."""
+    def host(v):
+        return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+
+    return {k: np.stack([host(s[k]) for s in states]) for k in states[0]}

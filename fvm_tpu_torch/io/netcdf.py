@@ -12,7 +12,7 @@ Layout (one file per call):
   attributes: group_names, group_types, field_names (newline-joined).
 
 The partitioned dumps of distributed runs raise ``ConfigError``: they are
-ROADMAP queue 1 item 8.
+ROADMAP queue 1 item 8b.
 """
 
 from __future__ import annotations
@@ -118,11 +118,11 @@ def _distributed(name):
     def raise_item8(*args, **kwargs):
         raise ConfigError(
             f"{name}: the partitioned dumps of distributed runs are not "
-            "ported yet (ROADMAP queue 1 item 8)")
+            "ported yet (ROADMAP queue 1 item 8b)")
 
     raise_item8.__name__ = name
     raise_item8.__doc__ = ("Raises ConfigError: a distributed path (ROADMAP "
-                           "queue 1 item 8).")
+                           "queue 1 item 8b).")
     return raise_item8
 
 

@@ -27,7 +27,7 @@ condensed AMG V-cycles whose products, residuals and Jacobi sweeps launch
 and elementwise products, as in the JAX package, outside any kernel.
 
 Float64 only: the ghost closures floor divisors at 1e-300.  A partitioned
-mesh and ordinate sharding raise ``ConfigError`` (ROADMAP queue 1 item 8).
+mesh and ordinate sharding raise ``ConfigError`` (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -348,12 +348,12 @@ class KineticModel(Model):
                  partition=None, ordinate_shards: int | None = None):
         """``partition`` and ``ordinate_shards`` (the JAX package's spatial
         and velocity-ordinate sharding) raise ``ConfigError``: the
-        distributed branches are ROADMAP queue 1 item 8."""
+        distributed branches are ROADMAP queue 1 item 8b."""
         if partition is not None or ordinate_shards:
             raise ConfigError(
                 "KineticModel: a partitioned mesh and ordinate sharding "
                 "(the distributed branches) are not ported yet (ROADMAP "
-                "queue 1 item 8)")
+                "queue 1 item 8b)")
         if mesh.dtype != torch.float64:
             raise ConfigError(
                 "KineticModel: the kinetic model runs in float64 only (its "

@@ -30,7 +30,7 @@ scattering product are plain PyTorch, as they are plain ``jnp`` in the JAX
 package.
 
 Float64 only: the closures floor divisors at 1e-300.  A partitioned mesh
-and ordinate sharding raise ``ConfigError`` (ROADMAP queue 1 item 8).
+and ordinate sharding raise ``ConfigError`` (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -141,12 +141,12 @@ class PhononModel(Model):
         run measured matrices through ``detailed_balance_correct``); COMET,
         uniform materials.  ``partition`` and ``ordinate_shards`` raise
         ``ConfigError``: the distributed branches are ROADMAP queue 1 item
-        8."""
+        8b."""
         if partition is not None or ordinate_shards:
             raise ConfigError(
                 "PhononModel: a partitioned mesh and ordinate sharding (the "
                 "distributed branches) are not ported yet (ROADMAP queue 1 "
-                "item 8)")
+                "item 8b)")
         if mesh.dtype != torch.float64:
             raise ConfigError(
                 "PhononModel: the phonon model runs in float64 only (its "

@@ -29,7 +29,26 @@ and the coarse inverse are cast once per solve, and the cycle casts only
 at its edges (``_cycle0``); on a CUDA tensor the DIA levels' products go
 through the bfloat16 ``dia_stencil`` kernel.
 
-Not ported yet: the distributed (stacked) levels.
+Distributed (``setup_structure_dist``, ``fvm_tpu/linear/amg.py:603-1100``):
+each rank runs a LOCAL cycle on the block of rows it owns, its couplings
+into halo columns dropped (additive Schwarz), as the preconditioner of a
+Krylov solve whose reductions all-reduce; a standalone distributed AMG
+solve is BiCGStab around that cycle.  Each rank builds only its own row of
+the JAX package's stacked hierarchy.  Its boundary rows are condensed
+with its own plan (``CondensePlan(drop_beyond=n_owned)``).  Then:
+
+* structured, when every rank's condensed block is the same
+  tensor-product grid (regular partitions of structured meshes): the
+  fine level is a ``DIAMatrix`` over the condensed shard grid, offsets
+  (+-1, +-nx), and every level below it a ``_StructuredLevel``, so every
+  smoothing sweep and residual of the cycle launches ``dia_stencil``;
+* general, on any other mesh or partition: the rank's greedy-aggregation
+  hierarchy, padded with identity levels to the deepest rank's depth; its
+  fine level is gather-ELL and its coarse levels take the DIA route where
+  their graph has DIA structure.
+
+The agreement (the same grid on every rank, the deepest depth) is one
+all-reduce each, so every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -42,10 +61,11 @@ import torch.nn.functional as F
 
 from .. import hostlib
 from ..exceptions import ConfigError
-from ..ops.dia import DIAInfo, DIAMatrix, index_tensor
+from ..ops.dia import CondensePlan, DIAInfo, DIAMatrix, index_tensor
 from ..ops.dia_kernel import cast_coef, empty_coef
 from ..ops.ell import ELLMatrix
-from .base import LinearSolver, SolveStats, check_info, condensed, norm
+from .base import (LinearSolver, SolveStats, check_info, condensed,
+                   distributed, norm)
 
 
 def aggregate_plain(cols: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -556,6 +576,8 @@ class AMG(LinearSolver):
         # the structure back to the host
         self._levels_cache: dict = {}
         self._levels_by_cols: dict = {}
+        # the rank's shard-local hierarchy (setup_structure_dist), or None
+        self._dist_setup = None
 
     # -- setup --------------------------------------------------------------
 
@@ -601,6 +623,147 @@ class AMG(LinearSolver):
                 cols, mask, n = lev.cols_c_np, lev.mask_c_np, lev.nC
         self._levels_cache[key] = levels
         return levels
+
+    def setup_structure_dist(self, cols_np: np.ndarray, mask_np: np.ndarray,
+                             n_owned: int, group, device=None) -> bool:
+        """The static shard-local hierarchy of this rank (``fvm_tpu/linear/
+        amg.py:852-1005``) from its HOST (n, K) tables; structured when
+        every rank presents the same condensed grid, else general.  Returns
+        False only when no coarsening is possible on any rank (then the
+        preconditioner is the diagonal, as in the JAX package).  Every rank
+        of ``group`` must call it."""
+        device = torch.device(group.device if device is None else device)
+        cols_np = np.ascontiguousarray(cols_np, dtype=np.int64)
+        mask_np = np.ascontiguousarray(mask_np, dtype=bool)
+        plan = CondensePlan(cols_np, mask_np, device, drop_beyond=n_owned)
+        ds = None
+        if self.structured:
+            ds = self._setup_dist_structured(cols_np, plan, group, device)
+        if ds is None:
+            ds = self._setup_dist_general(cols_np, plan, group, device)
+        self._dist_setup = ds
+        return ds is not None
+
+    def _setup_dist_structured(self, cols_np, plan, group, device):
+        """The structured shard hierarchy, or None unless every rank's
+        condensed block is the same (ny, nx) grid with dead tail rows and
+        couplings only at (+-1, +-nx)."""
+        from ..ops.halo import all_reduce
+
+        n = cols_np.shape[0]
+        mask2 = plan.mask2
+        grid = detect_grid(cols_np, mask2)
+        ok, nx, ny = grid is not None, 0, 0
+        if ok:
+            nx, ny, merge = grid
+            m = nx * ny
+            ok = not (merge >= 0).any() and not mask2[m:].any()
+        offsets = tuple(sorted((1, -1, nx, -nx)))
+        buckets = np.full(cols_np.shape, -1, dtype=np.int64)
+        if ok:
+            delta = np.where(mask2, cols_np - np.arange(n)[:, None], 0)
+            covered = ~mask2
+            for i, off in enumerate(offsets):
+                hit = mask2 & (delta == off)
+                buckets[hit] = i
+                covered |= hit
+            ok = bool(covered.all())
+        # the same grid on every rank, or the general hierarchy everywhere
+        v = torch.tensor([float(ok), nx, ny], dtype=torch.float64,
+                         device=group.device)
+        lo = all_reduce(v, group, "min").tolist()
+        hi = all_reduce(v, group, "max").tolist()
+        if lo[0] == 0.0 or lo != hi:
+            return None
+        levels = []
+        nx_, ny_, n_ = nx, ny, n
+        while (n_ > self.coarse_size and len(levels) < self.max_levels
+               and max(nx_, ny_) > 1):
+            lev = _StructuredLevel(nx_, ny_, n_, device)
+            levels.append(lev)
+            nx_, ny_, n_ = lev.nx_c, lev.ny_c, lev.nC
+        if not levels:
+            return None
+        return {"kind": "structured", "plan": plan, "offsets": offsets,
+                "buckets": index_tensor(buckets.T, device), "levels": levels}
+
+    def _setup_dist_general(self, cols_np, plan, group, device):
+        """This rank's greedy-aggregation hierarchy of its condensed block,
+        padded with identity levels to the deepest rank's depth."""
+        from ..ops.halo import all_reduce
+
+        cols, mask, n = cols_np, plan.mask2, cols_np.shape[0]
+        levels = []
+        while n > self.coarse_size and len(levels) < self.max_levels:
+            lev = _Level(cols, mask, device)
+            if lev.nC >= n:
+                break
+            levels.append(lev)
+            cols, mask, n = lev.cols_c_np, lev.mask_c_np, lev.nC
+        depth = int(all_reduce(torch.tensor(len(levels), device=group.device),
+                               group, "max"))
+        if depth == 0:
+            return None
+        while len(levels) < depth:
+            lev = _Level(cols, mask, device, agg=np.arange(n, dtype=np.int64))
+            levels.append(lev)
+            cols, mask, n = lev.cols_c_np, lev.mask_c_np, lev.nC
+        return {"kind": "general", "plan": plan, "levels": levels,
+                "mask2": torch.from_numpy(np.ascontiguousarray(
+                    plan.mask2.T)).to(device)}
+
+    def dist_hierarchy(self, A: ELLMatrix):
+        """The shard-local hierarchy of a distributed matrix: (levels, the
+        level matrices, the coarsest level's inverse, rhs), ``rhs`` the
+        right-side half of the rank's condensation by its own plan
+        (``ELLMatrix.eliminate``; the JAX package's ``_local_condense``).
+        On the structured hierarchy every level matrix is a
+        ``DIAMatrix``."""
+        ds = self._dist_setup
+        diag2, offv, rhs = A.eliminate(ds["plan"])
+        if ds["kind"] == "structured":
+            bkt, offsets = ds["buckets"], ds["offsets"]
+            coef = torch.stack(
+                [torch.where(bkt == i, offv, 0.0).sum(dim=0)
+                 for i in range(len(offsets))],
+                out=empty_coef(len(offsets), A.n, offv.dtype, offv.device))
+            A2 = DIAMatrix(diag2, coef, offsets).prepare()
+        else:
+            mask2 = ds["mask2"]
+            A2 = ELLMatrix(diag=diag2, off=torch.where(mask2, offv, 0.0),
+                           cols=A.cols, mask=mask2)
+        levels = ds["levels"]
+        mats = [A2]
+        for lev in levels:
+            mats.append(lev.galerkin(mats[-1]).prepare())
+        tail = mats[-1]
+        dense = (tail.to_dense() if isinstance(tail, DIAMatrix)
+                 else _dense_from_ell(tail, tail.diag.shape[0]))
+        inv, info = torch.linalg.inv_ex(dense)
+        check_info(info, "AMG coarsest-level inverse (shard-local)")
+        if self.precision == "bf16":
+            mats = [_to_bf16(m) for m in mats]
+            inv = inv.to(torch.bfloat16)
+        return levels, mats, inv, rhs
+
+    def _precond_setup_dist(self, A: ELLMatrix):
+        """The shard-local cycle of a distributed matrix as r -> z: fold the
+        condensed rows into r, one cycle on the local hierarchy (halo
+        couplings dropped), recover the condensed rows, zero the rows the
+        rank does not own (``fvm_tpu/linear/amg.py:1007-1100``)."""
+        if self._dist_setup is None:
+            return A.diag_solve
+        levels, mats, inv, rhs = self.dist_hierarchy(A)
+        owned = torch.arange(A.n, device=A.diag.device) < (
+            A.n if A.n_owned is None else A.n_owned)
+
+        def M(r):
+            r2, recover = rhs(r)
+            z = recover(self._cycle0(levels, mats, inv, r2))
+            return torch.where(owned if z.ndim == 1 else owned[:, None], z,
+                               0.0)
+
+        return M
 
     def _get_levels(self, A: ELLMatrix):
         """The hierarchy of A's structure.  The first solve on a given
@@ -672,11 +835,29 @@ class AMG(LinearSolver):
     # -- public -------------------------------------------------------------
 
     def precond_setup(self, A: ELLMatrix):
-        """Build the hierarchy ONCE for this matrix; returns r -> z."""
+        """Build the hierarchy ONCE for this matrix; returns r -> z (the
+        shard-local cycle for a distributed matrix)."""
+        if distributed(A):
+            return self._precond_setup_dist(A)
         levels, mats, inv = self._build_hierarchy(A)
         return lambda r: self._cycle0(levels, mats, inv, r)
 
     def solve_fn(self, A: ELLMatrix, b, x0):
+        if distributed(A):
+            # the shard-local cycles are an additive-Schwarz
+            # preconditioner, under which plain Richardson stalls with many
+            # shards: a BiCGStab whose reductions all-reduce runs around
+            # them (fvm_tpu/linear/amg.py:1204-1220)
+            from .krylov import BiCGStab
+
+            return BiCGStab(
+                preconditioner=self,
+                relative_tolerance=self.relativeTolerance,
+                absolute_tolerance=self.absoluteTolerance,
+                max_iterations=self.nMaxIterations,
+            ).solve_fn(A, b, x0)
+        from .krylov import _all_frozen
+
         A, b, recover = condensed(A, b)
         A = A.prepare()
         levels, mats, inv = self._build_hierarchy(A)
@@ -694,8 +875,10 @@ class AMG(LinearSolver):
         limit = 1e4 * (r0n + atol)
         i = torch.zeros((), dtype=torch.int64, device=b.device)
         x, rn, bx, bnorm = x0, r0n, x0, r0n
-        for _ in range(maxit):
+        for trip in range(maxit):
             active = torch.isfinite(rn) & (rn < limit) & (rn > target)
+            if _all_frozen(self, trip, active):
+                break
             x_n = x + self._cycle0(levels, mats, inv, r)
             r_n = A.residual(x_n, b)
             rn_n = norm(r_n)

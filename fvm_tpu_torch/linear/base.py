@@ -57,6 +57,31 @@ def norm(x):
     return torch.sqrt(torch.sum(x * x))
 
 
+def distributed(A) -> bool:
+    """Whether an operator is a shard's local operator: its reductions
+    all-reduce over the ranks (``ELLMatrix.psum``)."""
+    A = getattr(A, "surrogate", A)
+    return getattr(A, "group", None) is not None
+
+
+def psum(A, v):
+    """``A.psum(v)``: the sum over the ranks of a distributed operator,
+    else ``v``."""
+    return A.psum(v) if hasattr(A, "psum") else v
+
+
+def dots(A, *pairs):
+    """<a, b> of each pair, stacked, with one sum over the ranks: each is
+    the operator's own sum on this rank (``local_dot`` of a distributed
+    ``ELLMatrix``, else ``dot``), then ``psum`` (the identity on one
+    device).  Every single-device ``dot`` is ``torch.sum(a * b)`` but the
+    kinetic operators' (``kinetic/esbgk._sum2``: ordinates, then cells),
+    so on one device each entry equals ``A.dot(a, b)`` bit for bit."""
+    A = getattr(A, "surrogate", A)
+    f = getattr(A, "local_dot", A.dot)
+    return psum(A, torch.stack([f(a, b) for a, b in pairs]))
+
+
 def prepared(A):
     """Precompute DIA coefficients once per solve."""
     return A.prepare()
@@ -170,6 +195,9 @@ class MatrixFreeOperator:
 
     def norm(self, x):
         return self.surrogate.norm(x)
+
+    def psum(self, v):
+        return psum(self.surrogate, v)
 
     def diag_solve(self, r):
         return self.surrogate.diag_solve(r)

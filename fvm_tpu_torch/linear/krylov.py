@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from .base import LinearSolver, SolveStats, condensed, prepared
+from .base import (LinearSolver, SolveStats, condensed, distributed, dots,
+                   prepared, psum)
 
 
 def _setup_precond(precond, A):
@@ -50,12 +51,14 @@ def _stall_tol(dtype):
     return 1e-8 if dtype == torch.float64 else 1e-4
 
 
-def _all_frozen(solver, trip, active) -> bool:
-    """Whether an eager solve may stop: every ``exit_every`` trips (0: never)
+def _all_frozen(solver, trip, active, dist=False) -> bool:
+    """Whether an eager solve may stop: every ``exit_every`` trips (0: never;
+    every trip for a distributed operator, whose solves run eagerly and
+    whose ``active`` comes from all-reduced norms, the same on every rank)
     one read-back of the trip's activity, outside a graph capture.  A trip
     that is frozen leaves every later one frozen, so stopping there returns
     the frozen form's result."""
-    every = getattr(solver, "exit_every", 0)
+    every = getattr(solver, "exit_every", 0) or (1 if dist else 0)
     if not every or trip == 0 or trip % every:
         return False
     if active.is_cuda and torch.cuda.is_current_stream_capturing():
@@ -122,12 +125,14 @@ class BiCGStab(LinearSolver):
         limit = 1e8 * (rnorm0 + self.absoluteTolerance)
         stol = _stall_tol(dt) if self.stall_restart else 0.0
         rhn = A.norm(rhat)
+        dist = distributed(A)
+        rho_next = None
         for trip in range(trips):
             active = (rn > target) & torch.isfinite(rn) & (rn < limit)
-            if _all_frozen(self, trip, active):
+            if _all_frozen(self, trip, active, dist):
                 break
 
-            rho_raw = A.dot(rhat, r)
+            rho_raw = A.dot(rhat, r) if rho_next is None else rho_next
             stall = rho_raw.abs() < stol * rhn * rn
             rhat_n = torch.where(stall, r, rhat)
             rhn_n = torch.where(stall, rn, rhn)
@@ -143,19 +148,24 @@ class BiCGStab(LinearSolver):
             s = r - alpha_n * v_n
             shat = M(s)
             t = A.mv(shat)
-            tt = A.dot(t, t)
-            omega_n = A.dot(t, s) / torch.where(tt > tiny, tt, tiny)
+            tt, ts = dots(A, (t, t), (t, s))
+            omega_n = ts / torch.where(tt > tiny, tt, tiny)
             x_n = x + alpha_n * phat + omega_n * shat
             r_n = s - omega_n * t
-            rn_n = A.norm(r_n)
+            r_k = torch.where(active, r_n, r)
+            rhat_k = torch.where(active, rhat_n, rhat)
+            # |r_n|^2 and the next trip's <rhat, r> in one reduction
+            rn2, rho_next = dots(A, (r_n, r_n), (rhat_k, r_k))
+            rn_n = torch.sqrt(rn2)
             better = torch.isfinite(rn_n) & (rn_n < brn)
 
             i = i + active.to(i.dtype)
             bx = torch.where(active & better, x_n, bx)
             brn = torch.where(active & better, rn_n, brn)
-            x, r, p, v, rhat = (
+            r, rhat = r_k, rhat_k
+            x, p, v = (
                 torch.where(active, a, c) for a, c in
-                ((x_n, x), (r_n, r), (p_n, p), (v_n, v), (rhat_n, rhat)))
+                ((x_n, x), (p_n, p), (v_n, v)))
             rho, alpha, omega, rn, rhn = (
                 torch.where(active, a, c) for a, c in
                 ((rho_n, rho), (alpha_n, alpha), (omega_n, omega), (rn_n, rn),
@@ -221,8 +231,11 @@ class CG(LinearSolver):
         target = torch.clamp(rtol * rnorm0, min=atol)
         i = torch.zeros((), dtype=torch.int64, device=b.device)
         x, r, p, rz, rn = x0, r0, z0, A.dot(r0, z0), rnorm0
-        for _ in range(maxit):
+        dist = distributed(A)
+        for trip in range(maxit):
             active = rn > target
+            if _all_frozen(self, trip, active, dist):
+                break
             Ap = A.mv(p)
             alpha = rz / A.dot(p, Ap)
             x_n = x + alpha * p
@@ -312,11 +325,12 @@ class GMRES(LinearSolver):
         res = torch.zeros((), dtype=dt, device=dev)
         is_open = torch.zeros((), dtype=torch.bool, device=dev)
         i = i0
+        dist = distributed(A)
         for trip in range(maxit - 1 + m):
             # open a cycle where none is open (the restart loop's test)
             start = (~is_open & (i < i0 + maxit) & (rn > target)
                      & torch.isfinite(rn) & (rn < limit))
-            if _all_frozen(self, trip, is_open | start):
+            if _all_frozen(self, trip, is_open | start, dist):
                 break
             beta = A.norm(r)
             V[0] = torch.where(start, r / torch.clamp(beta, min=tiny), V[0])
@@ -331,9 +345,11 @@ class GMRES(LinearSolver):
             step = is_open & (j < m) & (res > target) & torch.isfinite(res)
             w = A.mv(M(V.index_select(0, j.reshape(1))[0]))
             le = (k <= j).to(dt)
-            h1 = torch.einsum("k...,...->k", V, w) * le
+            # the basis products sum over the ranks (fvm_tpu/linear/
+            # krylov.py:391)
+            h1 = psum(A, torch.einsum("k...,...->k", V, w)) * le
             w = w - torch.einsum("k,k...->...", h1, V)
-            h2 = torch.einsum("k...,...->k", V, w) * le
+            h2 = psum(A, torch.einsum("k...,...->k", V, w)) * le
             w = w - torch.einsum("k,k...->...", h2, V)
             hw = A.norm(w)
             h = Q @ (h1 + h2 + torch.where(k == j + 1, hw, 0.0))
@@ -432,14 +448,26 @@ class JacobiSolver(LinearSolver):
             self.absoluteTolerance,
             self.nMaxIterations,
         )
-        rnorm0 = A.norm(A.residual(x0, b))
+        r = A.residual(x0, b)
+        rnorm0 = A.norm(r)
         target = torch.clamp(rtol * rnorm0, min=atol)
         i = torch.zeros((), dtype=torch.int64, device=b.device)
         x, rn = x0, rnorm0
-        for _ in range(maxit):
+        dist = distributed(A)
+        for trip in range(maxit):
             active = rn > target
-            x_n = A.jacobi_step(x, b, self.omega)
-            rn_n = A.norm(A.residual(x_n, b))
+            if _all_frozen(self, trip, active, dist):
+                break
+            if dist:
+                # the step's residual is the last trip's (the same product
+                # of the same iterate): one halo exchange a trip fewer
+                x_n = x + self.omega * A.diag_solve(r)
+                r_n = A.residual(x_n, b)
+                r = torch.where(active, r_n, r)
+            else:
+                x_n = A.jacobi_step(x, b, self.omega)
+                r_n = A.residual(x_n, b)
+            rn_n = A.norm(r_n)
             i = i + active.to(i.dtype)
             x, rn = torch.where(active, x_n, x), torch.where(active, rn_n, rn)
         return recover(x), SolveStats(i, rnorm0, rn, rn <= target)

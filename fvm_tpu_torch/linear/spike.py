@@ -28,7 +28,7 @@ band is preconditioned by diagonal scaling, the JAX package's own
 semantics (``spike.py:327-356``), on every device.  The cross-shard SPIKE
 (``setup_structure_dist``, the ``axis`` branch of ``spike_apply``) runs
 only across shards and raises ``ConfigError`` here (ROADMAP queue 1
-item 8).
+item 8b).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from .base import LinearSolver, prepared
 from .ilu import diag_scaling, stationary_solve
 
 _DIST = ("the cross-shard SPIKE runs only on a sharded mesh, which the "
-         "port does not build yet (ROADMAP queue 1 item 8)")
+         "port does not build yet (ROADMAP queue 1 item 8b)")
 
 
 def _thomas_factor(a, d, c):

@@ -22,6 +22,11 @@ The JAX package's shift-gather fabric (``MeshGathers``,
 ``PlaneMajorGathers``, ``ShiftGather``, ``dia_gather_slots``) exists
 because the TPU has no hardware gather; a GPU has one, so ``take_owner``,
 ``take_nbr`` and ``take_faces`` are plain indexing here.
+
+A shard's local mesh (``parallel.Partition.local_mesh``) has the same
+layout with the partitioner's padding, ``fvm_tpu/mesh/device.py:86-94``:
+cells ``[owned interior | boundary ghosts | halo copies | 1 dummy]``, and
+carries its rank's exchange tables and process group.
 """
 
 from __future__ import annotations
@@ -102,6 +107,16 @@ class DeviceMesh:
     # double-shell interfaces: ((name, left group name, right group name),
     # ...); the i-th face of the L group pairs with the i-th of the R group
     interfaces: tuple = ()
+    # --- distribution (None on one device; ``parallel.Partition.
+    # local_mesh``): cells [0, n_owned_cells_) are this rank's own
+    # (interior, then boundary ghosts), [n_owned_cells_, n_cells) halo
+    # copies of other ranks' cells and the dummy cell; ``halo`` is the
+    # exchange tables (``ops.halo.HaloSpec``) and ``group`` the rank's
+    # ``parallel.ShardGroup``
+    halo: object = None
+    group: object = None
+    n_owned_cells_: int | None = None
+    n_shards: int | None = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -123,7 +138,12 @@ class DeviceMesh:
 
     @property
     def n_owned_cells(self) -> int:
-        return self.n_cells
+        return self.n_cells if self.n_owned_cells_ is None \
+            else self.n_owned_cells_
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
 
     @property
     def n_boundary_faces(self) -> int:
@@ -192,33 +212,27 @@ def _cf_tables(owner, nbr, face_valid, n_cells, K):
     return cf_face, cf_mask, cf_is_owner, cf_nbr
 
 
-def assemble_device_mesh(
-    dim: int,
+def host_tables(
     face_cells: np.ndarray,  # (nf, 2); boundary nbr = ghost id
-    groups: tuple,  # ((ident, name, type, offset, count), ...)
-    n_interior_cells: int,
     n_interior_faces: int,
     n_cells: int,
     face_area: np.ndarray,
     face_area_mag: np.ndarray,
     face_centroid: np.ndarray,
     cell_centroid: np.ndarray,
-    cell_volume: np.ndarray,
-    dtype=None,
-    device=None,
     face_valid: np.ndarray | None = None,
     extra_adj: tuple | None = None,
-    interfaces: tuple = (),
-) -> DeviceMesh:
-    """Low-level device-mesh assembler from flat host arrays.
+) -> dict:
+    """The host half of ``assemble_device_mesh``: every table of a device
+    mesh as a host numpy array (float64, int64, bool), the cell->face
+    tables slot-leading (K, n) as on the device, plus ``"K"`` and
+    ``"orthogonal"``.  ``parallel.Partition`` builds each shard's local
+    mesh from these (``fvm_tpu/mesh/device.py:201-364`` with
+    ``as_numpy=True``).
 
     ``extra_adj`` (rows, cols): couplings that are no face (the periodic
     and shell-ghost rows), spliced into the free tail slots of their rows
     in the given order."""
-    from ..ops.dia import DIAInfo
-
-    dev = resolve_device(device)
-    dtype = as_dtype(dtype)
     nf = face_cells.shape[0]
     owner = face_cells[:, 0]
     nbr = face_cells[:, 1]
@@ -251,12 +265,6 @@ def assemble_device_mesh(
         # assembled values are overwritten by the BC and interface rows
         cf_face[er, slot2] = cf_face[er, 0]
         cf_is_owner[er, slot2] = cf_is_owner[er, 0]
-    host_data = HostMeshData(
-        np.asarray(cell_centroid, dtype=np.float64),
-        np.asarray(cf_nbr, dtype=np.int32),
-        np.asarray(cf_mask, dtype=bool),
-    )
-    dia = DIAInfo.build(cf_nbr, cf_mask, dev)
 
     ds = cell_centroid[nbr] - cell_centroid[owner]
     dsmag = np.linalg.norm(ds, axis=1)
@@ -279,49 +287,102 @@ def assemble_device_mesh(
     face_wo = dn_ / np.maximum(do_ + dn_, 1e-300)
     tmag = np.abs(t_vec[:n_interior_faces]).max() if n_interior_faces else 0.0
     scale = np.abs(face_area_mag).max() if nf else 1.0
-    orthogonal = bool(tmag <= 1e-12 * max(scale, 1e-300))
+    return {
+        "K": K,
+        "orthogonal": bool(tmag <= 1e-12 * max(scale, 1e-300)),
+        "face_cell0": owner, "face_cell1": nbr,
+        "cf_face": cf_face.T, "cf_is_owner": cf_is_owner.T,
+        "cf_mask": cf_mask.T, "cf_nbr": cf_nbr.T,
+        "face_area": face_area, "face_area_mag": face_area_mag,
+        "face_centroid": face_centroid, "cell_centroid": cell_centroid,
+        "face_ds": ds, "face_dsmag": dsmag, "face_e_over_d": e_over_d,
+        "face_t": t_vec, "face_wo": face_wo,
+    }
 
+
+# the DeviceMesh tensors of ``host_tables``, by kind
+FLOAT_TABLES = ("face_area", "face_area_mag", "face_centroid",
+                "cell_centroid", "cell_volume", "face_ds", "face_dsmag",
+                "face_e_over_d", "face_t", "face_wo")
+INDEX_TABLES = ("face_cell0", "face_cell1", "cf_face", "cf_nbr")
+BOOL_TABLES = ("cf_is_owner", "cf_mask")
+
+
+def mesh_from_tables(dim: int, groups: tuple, n_interior_cells: int,
+                     n_interior_faces: int, tables: dict, dtype=None,
+                     device=None, dia: bool = True, orthogonal=None,
+                     interfaces: tuple = (), **dist) -> DeviceMesh:
+    """A DeviceMesh on ``device`` from host tables (``host_tables`` plus
+    ``"cell_volume"``): floats in ``dtype``, indices int64.  ``dia``
+    builds the DIA metadata (a shard's local mesh has none: its halo
+    columns are no regular offsets, as in the JAX package, whose
+    partitioned meshes carry no ``DIAInfo``).  ``dist``: the distribution
+    fields (``halo``, ``group``, ``n_owned_cells_``, ``n_shards``)."""
+    from ..ops.dia import DIAInfo
+
+    dev = resolve_device(device)
+    dtype = as_dtype(dtype)
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-
-    def f(x):  # convert in numpy first, like the JAX package
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np_dtype)).to(dev)
-
-    def i(x):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(dev)
-
-    def b(x):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=bool)).to(dev)
-
+    cf_nbr_h = np.ascontiguousarray(tables["cf_nbr"].T)
+    cf_mask_h = np.ascontiguousarray(tables["cf_mask"].T)
+    out = {}
+    for k in FLOAT_TABLES:  # convert in numpy first, like the JAX package
+        out[k] = torch.from_numpy(np.ascontiguousarray(
+            tables[k], dtype=np_dtype)).to(dev)
+    for k in INDEX_TABLES:
+        out[k] = torch.from_numpy(np.ascontiguousarray(
+            tables[k], dtype=np.int64)).to(dev)
+    for k in BOOL_TABLES:
+        out[k] = torch.from_numpy(np.ascontiguousarray(
+            tables[k], dtype=bool)).to(dev)
+    n_cells = tables["cell_volume"].shape[0]
     return DeviceMesh(
         dim=dim,
         n_cells=n_cells,
         n_interior_cells=n_interior_cells,
-        n_faces=nf,
+        n_faces=tables["face_cell0"].shape[0],
         n_interior_faces=n_interior_faces,
-        max_faces_per_cell=K,
+        max_faces_per_cell=tables["cf_nbr"].shape[0],
         groups=tuple(groups),
         device=dev,
-        face_cell0=i(owner),
-        face_cell1=i(nbr),
-        cf_face=i(cf_face.T),
-        cf_is_owner=b(cf_is_owner.T),
-        cf_mask=b(cf_mask.T),
-        cf_nbr=i(cf_nbr.T),
-        face_area=f(face_area),
-        face_area_mag=f(face_area_mag),
-        face_centroid=f(face_centroid),
-        cell_centroid=f(cell_centroid),
-        cell_volume=f(cell_volume),
-        face_ds=f(ds),
-        face_dsmag=f(dsmag),
-        face_e_over_d=f(e_over_d),
-        face_t=f(t_vec),
-        face_wo=f(face_wo),
-        dia=dia,
-        host=host_data,
-        orthogonal=orthogonal,
+        dia=DIAInfo.build(cf_nbr_h, cf_mask_h, dev) if dia else None,
+        host=HostMeshData(
+            np.asarray(tables["cell_centroid"], dtype=np.float64),
+            cf_nbr_h.astype(np.int32), cf_mask_h),
+        orthogonal=(tables["orthogonal"] if orthogonal is None
+                    else orthogonal),
         interfaces=tuple(interfaces),
+        **out, **dist,
     )
+
+
+def assemble_device_mesh(
+    dim: int,
+    face_cells: np.ndarray,  # (nf, 2); boundary nbr = ghost id
+    groups: tuple,  # ((ident, name, type, offset, count), ...)
+    n_interior_cells: int,
+    n_interior_faces: int,
+    n_cells: int,
+    face_area: np.ndarray,
+    face_area_mag: np.ndarray,
+    face_centroid: np.ndarray,
+    cell_centroid: np.ndarray,
+    cell_volume: np.ndarray,
+    dtype=None,
+    device=None,
+    face_valid: np.ndarray | None = None,
+    extra_adj: tuple | None = None,
+    interfaces: tuple = (),
+) -> DeviceMesh:
+    """Low-level device-mesh assembler from flat host arrays
+    (``host_tables``, then ``mesh_from_tables``)."""
+    tables = host_tables(face_cells, n_interior_faces, n_cells, face_area,
+                         face_area_mag, face_centroid, cell_centroid,
+                         face_valid=face_valid, extra_adj=extra_adj)
+    tables["cell_volume"] = cell_volume
+    return mesh_from_tables(dim, groups, n_interior_cells, n_interior_faces,
+                            tables, dtype=dtype, device=device,
+                            interfaces=interfaces)
 
 
 def build_device_mesh(

@@ -11,6 +11,19 @@ of tensors on the mesh's device (the JAX package's pytrees).  ``advance``
 runs one linearize+solve step per outer iteration; with the option
 ``residualSync`` False (and ``verbose`` off) the residual norms stay
 device tensors and no convergence check reads them back.
+
+Distributed (``fvm_tpu/models/base.py:43-285``): a model built on a
+rank's local mesh (``Partition.local_mesh(rank, device, group)``) with
+``partition=`` runs the rank-local step; each rank holds its own row of
+the JAX package's stacked state, its reductions all-reduce and its halo
+slots refresh through the mesh's exchange tables.  Host inputs (VC
+arrays, BC values) are global and scattered to the rank's cells and
+padded group slots; the getters gather the global field on every rank.
+A distributed model runs eager on every device: its collectives (gloo's
+among them) cannot be captured in a CUDA graph, so ``outerChunk`` runs
+the per-step loop, whose history and early exit are the chunked form's
+(the stop test reads the all-reduced residual, the same on every rank),
+and ``chunk.Runner`` refuses a distributed mesh.
 """
 
 from __future__ import annotations
@@ -32,8 +45,19 @@ from .chunk import Runner
 class Model:
     name = "Model"
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, partition=None):
+        """``mesh``: a DeviceMesh, or a rank's local mesh of ``partition``
+        (``Partition.local_mesh``)."""
         self.mesh = mesh
+        self.partition = partition
+        self._dist = getattr(mesh, "group", None) is not None
+        if self._dist and partition is None:
+            raise ConfigError(f"{self.name}: a rank's local mesh needs "
+                              "partition=")
+        if partition is not None and not self._dist:
+            raise ConfigError(
+                f"{self.name}: partition= needs the rank's local mesh "
+                "(Partition.local_mesh(rank, device, group))")
         self.state: dict = {}
         self.params: dict = {}
         self.options = self._make_options()
@@ -62,14 +86,49 @@ class Model:
     # --- field helpers ----------------------------------------------------
 
     def _cell_field(self, vcdict, key, extend_ghosts=False):
-        """Resolve a VC entry to an (nc,) cell tensor on the mesh's device."""
+        """Resolve a VC entry to an (nc,) cell tensor on the mesh's device
+        (the rank's local cells when distributed)."""
         from ..core import bcs as bck
 
         mesh = self.mesh
+        if self._dist:
+            return self._scatter_host_cells(vcdict[key], extend_ghosts)
         arr = vcdict.resolve(key, mesh.n_cells, mesh.dtype, mesh.device)
         if extend_ghosts:
             arr = bck.extend_to_ghosts(mesh, arr)
         return arr
+
+    def _scatter_host_cells(self, v, extend_ghosts=False):
+        """A global cell value or array (interior or all cells) -> this
+        rank's local cells, optionally owner-copied into the ghosts it
+        leaves uncovered (the distributed ``extend_to_ghosts``)."""
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        arr = np.asarray(v, dtype=np.float64)
+        hm = self.partition.mesh
+        if arr.ndim == 0:
+            host = np.full(hm.n_cells, float(arr))
+        else:
+            host = np.zeros((hm.n_cells,) + arr.shape[1:])
+            host[: len(arr)] = arr
+            if extend_ghosts and len(arr) < hm.n_cells:
+                gh = np.arange(max(len(arr), hm.n_interior_cells), hm.n_cells)
+                own = hm.face_cells[
+                    hm.n_interior_faces + (gh - hm.n_interior_cells), 0]
+                host[gh] = host[own]
+        loc = self.partition.scatter_cells(host, self.mesh.group.rank)
+        return torch.from_numpy(loc).to(self.mesh.device, self.mesh.dtype)
+
+    def _gather_cells(self, x) -> np.ndarray:
+        """The global interior cell array of a local cell tensor: every
+        rank's rows gathered on every rank (distributed); else x's
+        interior rows."""
+        if not self._dist:
+            return x[: self.mesh.n_interior_cells].detach().cpu().numpy()
+        from ..ops.halo import all_gather
+
+        stacked = all_gather(x, self.mesh.group).cpu().numpy()
+        return self.partition.gather_cells(stacked)
 
     def _full_cells(self, value, trailing=()):
         mesh = self.mesh
@@ -82,16 +141,34 @@ class Model:
                           dtype=mesh.dtype, device=mesh.device)
 
     def _resolve_bcvals(self):
-        """BC value dict: ``"<group>:<key>"`` -> per-face tensor."""
+        """BC value dict: ``"<group>:<key>"`` -> per-face tensor (the
+        rank's padded group slots when distributed, with ``__valid``
+        marking the real ones)."""
         mesh = self.mesh
         vals = {}
         for g, bc in self._group_bcs():
             for key in bc:
-                vals[f"{g[1]}:{key}"] = bc.resolve(key, g[4], mesh.dtype,
-                                                   mesh.device)
-            vals[f"{g[1]}:__valid"] = torch.ones(g[4], dtype=torch.bool,
-                                                 device=mesh.device)
+                vals[f"{g[1]}:{key}"] = self._group_bc_values(g, bc, key)
+            if self._dist:
+                valid = torch.from_numpy(self.partition.group_valid_mask(
+                    g[1], mesh.group.rank)).to(mesh.device)
+            else:
+                valid = torch.ones(g[4], dtype=torch.bool,
+                                   device=mesh.device)
+            vals[f"{g[1]}:__valid"] = valid
         return vals
+
+    def _group_bc_values(self, g, bc, key):
+        """Per-face BC values of a group: (L,) tensor (the rank's padded
+        slots of the global group's values when distributed)."""
+        mesh = self.mesh
+        if not self._dist:
+            return bc.resolve(key, g[4], mesh.dtype, mesh.device)
+        n_global = self.partition.global_group_count(g[1])
+        glob = bc.resolve(key, n_global, torch.float64, "cpu").numpy()
+        loc = self.partition.scatter_bc(g[1], glob, mesh.group.rank)
+        t = torch.from_numpy(loc).to(mesh.device)
+        return t.to(mesh.dtype) if t.is_floating_point() else t
 
     # --- subclass hooks ---------------------------------------------------
 
@@ -134,17 +211,27 @@ class Model:
             return rlog.tracer.phase(f"{self.name}/{name}")
         return contextlib.nullcontext()
 
-    # --- post-processing helpers (single device) --------------------------
+    # --- post-processing helpers ----------------------------------------
 
     def _map_mesh(self, fn, *args):
-        """``fn(mesh, *args)`` (the JAX package vmaps it over shards when
-        distributed, ``fvm_tpu/models/base.py:221``)."""
+        """``fn(mesh, *args)`` on this rank's mesh (the JAX package vmaps
+        it over the stacked shards, ``fvm_tpu/models/base.py:221``)."""
         return fn(self.mesh, *args)
 
     def _sum_group(self, g, F):
         """Sum a per-face quantity (nf, ...) over a boundary group's faces
-        (``fvm_tpu/models/base.py:229``)."""
-        return F[self.mesh.group_faces(g)].sum(dim=0)
+        (``fvm_tpu/models/base.py:229``); distributed, over the rank's real
+        group slots, then over the ranks (the reference's per-rank integral
+        and allreduce in get<Var>FluxIntegral)."""
+        from ..ops.halo import gsum
+
+        Fg = F[self.mesh.group_faces(g)]
+        if not self._dist:
+            return Fg.sum(dim=0)
+        valid = torch.from_numpy(self.partition.group_valid_mask(
+            g[1], self.mesh.group.rank)).to(Fg.device)
+        valid = valid.reshape(valid.shape + (1,) * (Fg.ndim - 1))
+        return gsum(self.mesh, torch.where(valid, Fg, 0.0).sum(dim=0))
 
     def _group(self, group_name):
         """A boundary group's tuple, by name or as given."""
@@ -173,7 +260,7 @@ class Model:
             raise ConfigError(
                 f"{self.name}: the distributed immersed boundary (the "
                 "per-shard stencil tables) is not ported yet (ROADMAP queue "
-                "1 item 8)")
+                "1 item 8b)")
         mesh = self.mesh
         nc = mesh.n_cells
         m = np.zeros(nc, dtype=bool)
@@ -348,7 +435,9 @@ class Model:
         """The active outer-chunk size for advance(niter) (0: the classic
         per-iteration loop)."""
         chunk = int(self.options.get("outerChunk") or 0)
-        return chunk if chunk > 1 and niter > 1 else 0
+        # a distributed model runs eager: the per-step loop (module
+        # docstring)
+        return chunk if chunk > 1 and niter > 1 and not self._dist else 0
 
     def _chunk_runner(self, chunk: int) -> Runner:
         """The chunk of ``chunk`` trips, built (and on a CUDA mesh
@@ -359,7 +448,7 @@ class Model:
             # which holds the runner
             runner = Runner(functools.partial(
                 self._chunk_fn, self._step, self.mesh, self.params), chunk,
-                self.mesh.device)
+                self.mesh.device, self.mesh)
             self._runners[("chunk", chunk)] = runner
         return runner
 
@@ -522,7 +611,7 @@ def single_device_model(name: str, partition) -> None:
     if partition is not None:
         raise ConfigError(
             f"{name}: a partitioned mesh (the distributed branch) is not "
-            "ported yet (ROADMAP queue 1 item 8)")
+            "ported yet (ROADMAP queue 1 item 8b)")
 
 
 def newton_advance(model, niter: int) -> ResidualHistory:

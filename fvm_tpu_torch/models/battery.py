@@ -31,7 +31,7 @@ preconditioner of the default BiCGStab(Jacobi(3), 1e-8, 300).
 and ``getCurrentIntegral`` follow the JAX package.  BC types:
 'SpecifiedPotential', 'SpecifiedCurrent' (per area, positive into the
 domain), 'Symmetry'.  A partitioned mesh raises ``ConfigError`` (ROADMAP
-queue 1 item 8).
+queue 1 item 8b).
 """
 
 from __future__ import annotations

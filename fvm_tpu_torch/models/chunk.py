@@ -38,6 +38,9 @@ A check that needs the host (the ``info`` of a factorisation,
 ``linear.base.check_info``) cannot run inside a capture: it is made after
 each replay instead, and a failure raises ``SolverError`` there.
 
+A distributed mesh (``parallel.Partition.local_mesh``) is refused: gloo's
+collectives cannot be captured, so distributed models run eagerly.
+
 Launch counters (``dia_kernel.dia_stencil.launches`` and ``.shapes``,
 ``ell.gather_ell_ops``) count executions: the launches issued while a
 graph is captured are taken back out of the counters and kept as the
@@ -154,7 +157,13 @@ class Runner:
     """``build(trips)`` run eagerly on the CPU, as one CUDA graph replay
     on a CUDA device (module docstring)."""
 
-    def __init__(self, build, trips: int, device):
+    def __init__(self, build, trips: int, device, mesh=None):
+        if getattr(mesh, "group", None) is not None:
+            from ..exceptions import ConfigError
+
+            raise ConfigError(
+                "chunk.Runner: a distributed mesh runs eager (its "
+                "collectives cannot be captured in a CUDA graph)")
         self.build = build
         self.trips = int(trips)
         self.device = torch.device(device)

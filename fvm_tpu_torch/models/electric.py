@@ -24,8 +24,17 @@ BC types: 'SpecifiedPotential', 'SpecifiedCharge' (surface charge density
 shell interfaces in the potential solve, the dielectric layer
 (LinearizeDielectric.h:102) among them.  Sensitivities of the potential
 solve (``solve_tangent``, ``solve_adjoint``, ``solve_mc``, charge held
-fixed).  A partitioned mesh raises ``ConfigError`` (ROADMAP queue 1 item
-8).
+fixed).
+
+Distributed (``ElectricModel(local_mesh, partition=part)``,
+``fvm_tpu/models/electric.py:151-188, 394, 555-570``): the electrostatics
+and the charge transport with trapping run on shards with the JAX
+package's branches (their halo refreshes; the default potential solver
+``BiCGStab(JacobiSolver(sweeps=3), 1e-10, 500)``, a given AMG without a
+shard hierarchy), and the getters are global on every rank.  The
+trap-band tunneling raises on shards, as in the JAX package; the
+sensitivities and the immersed boundary on shards are not ported yet
+(ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from ..linear import AMG, BiCGStab, JacobiSolver
 from ..linear.base import JFNK_EXIT_EVERY
 from ..ops import assembly, discretizations as disc
 from ..ops.gradients import gradient, ls_gradient_coefficients
-from .base import Model, ResidualHistory, single_device_model
+from ..ops.halo import maybe_sync
+from .base import Model, ResidualHistory
 from .sensitivity import TangentMixin
 
 EPS0 = 8.8542e-12
@@ -112,8 +122,7 @@ class ElectricModel(TangentMixin, Model):
     name = "ElectricModel"
 
     def __init__(self, mesh, partition=None):
-        single_device_model(self.name, partition)
-        super().__init__(mesh)
+        super().__init__(mesh, partition)
         self.vc = ElectricVC()
         self._E = None
 
@@ -159,8 +168,13 @@ class ElectricModel(TangentMixin, Model):
 
         solver = self.options.get("electrostaticsLinearSolver")
         if solver is None:
-            solver = BiCGStab(preconditioner=AMG(), relative_tolerance=1e-10,
-                              max_iterations=50)
+            if self._dist:
+                solver = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                                  relative_tolerance=1e-10,
+                                  max_iterations=500)
+            else:
+                solver = BiCGStab(preconditioner=AMG(),
+                                  relative_tolerance=1e-10, max_iterations=50)
             self.options["electrostaticsLinearSolver"] = solver
         csolver = self.options.get("chargeLinearSolver")
         if csolver is None:
@@ -170,7 +184,7 @@ class ElectricModel(TangentMixin, Model):
             self.options["chargeLinearSolver"] = csolver
         for sv in (solver, csolver):
             for s in (sv, getattr(sv, "preconditioner", None)):
-                if isinstance(s, AMG):
+                if isinstance(s, AMG) and not self._dist:
                     s.setup_structure(*mesh.host_cf(), mesh.device)
 
         self._step = self._build_step()
@@ -183,12 +197,12 @@ class ElectricModel(TangentMixin, Model):
 
     def _linearize_potential(self, mesh, params, state, bcvals):
         """(A, r) of the potential equation at the current state."""
-        phi = state["potential"]
+        phi = maybe_sync(mesh, state["potential"])
         rho = state["charge"] + state["trapped"]
         eps_f = disc.harmonic_face_gamma(mesh, params["eps"])
         gradp = None
         if "grad_coeff" in params:
-            gradp = gradient(mesh, params["grad_coeff"], phi)
+            gradp = maybe_sync(mesh, gradient(mesh, params["grad_coeff"], phi))
         flux = disc.diffusion_flux(mesh, phi, eps_f, gradp)
 
         for g, bc in self._group_bcs():
@@ -272,11 +286,11 @@ class ElectricModel(TangentMixin, Model):
 
     def _linearize_charge(self, mesh, params, state, bcvals, E_field):
         """(A, r) of the free-charge equation in the field ``E_field``."""
-        c = state["charge"]
+        c = maybe_sync(mesh, state["charge"])
         D_f = disc.harmonic_face_gamma(mesh, params["diffusivity"])
         gradc = None
         if "grad_coeff" in params:
-            gradc = gradient(mesh, params["grad_coeff"], c)
+            gradc = maybe_sync(mesh, gradient(mesh, params["grad_coeff"], c))
         flux = disc.diffusion_flux(mesh, c, D_f, gradc)
         # drift: the "mass flux" mobility * E . A at faces
         mob_f = disc.harmonic_face_gamma(mesh, params["mobility"])
@@ -342,6 +356,9 @@ class ElectricModel(TangentMixin, Model):
         mesh alone).  Each cell steps to its interior neighbour with the
         largest gain along the axis (the reference's "neighborUp",
         :125-131) and repeats itself at the top."""
+        if self._dist:
+            raise ConfigError("trap-band tunneling on shards is not "
+                              "supported (as in the JAX package)")
         mesh = self.mesh
         axis = int(self.options["tunnelingDirection"])
         L = int(self.options["tunnelingMaxSteps"])
@@ -434,15 +451,16 @@ class ElectricModel(TangentMixin, Model):
             else:
                 rnorm = torch.zeros((), dtype=state["potential"].dtype,
                                     device=mesh.device)
-            E = me._field(mesh, params, state["potential"])
+            E = me._field(mesh, params, maybe_sync(mesh, state["potential"]))
             aux = {"rnorm": rnorm, "E": E}
             if transport:
-                Ac, rc = me._linearize_charge(mesh, params, state, bcvals, E)
+                Es = maybe_sync(mesh, E)
+                Ac, rc = me._linearize_charge(mesh, params, state, bcvals, Es)
                 aux["charge_rnorm"] = Ac.norm(rc)
                 dc, _ = csolver.solve_fn(Ac, rc, torch.zeros_like(rc))
                 state = dict(state, charge=state["charge"] + dc)
                 if traps:
-                    state = me._trap_update(mesh, params, state, E)
+                    state = me._trap_update(mesh, params, state, Es)
             return state, aux
 
         return step
@@ -523,7 +541,7 @@ class ElectricModel(TangentMixin, Model):
             niter)
 
     def _interior(self, x):
-        return x[: self.mesh.n_interior_cells].cpu().numpy()
+        return self._gather_cells(x)
 
     def getPotential(self):
         """Interior-cell potentials as a host numpy array."""

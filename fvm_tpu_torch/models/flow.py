@@ -31,6 +31,16 @@ integrals; the sensitivities (``solve_tangent``, ``solve_tangent_force``,
 ``solve_adjoint``, ``solve_adjoint_force``: the tangent and adjoint fixed
 points of the SIMPLE map at the converged state).  The mesh-sequencing
 warm start is ``models/fmg.prolong_flow_state``.
+
+Distributed (``FlowModel(local_mesh, partition=part)``): the SIMPLE step
+on each rank's shard with its halo refreshes (``fvm_tpu/models/flow.py:
+243-312, 416-642``), the momentum and continuity norms and the pressure
+level summed over the ranks, the default pressure solver BiCGStab around
+the shard-local AMG (``AMG(coarse_size=64)``; Jacobi(3) where no rank can
+coarsen), the force and flux integrals and the getters global on every
+rank.  On shards, ``advanceCoupled``, ``advanceNewton``, the
+sensitivities and the immersed boundary are not ported yet (ROADMAP queue
+1 item 8b): they raise.
 """
 
 from __future__ import annotations
@@ -52,12 +62,14 @@ from ..ops import discretizations as disc
 from ..ops.assembly import FaceFlux
 from ..ops.halo import maybe_sync, gsum
 from ..ops.gradients import ls_gradient_coefficients, gradient
-from ..linear import AMG, BiCGStab, GMRES, CoupledSIMPLE, Anderson
+from ..linear import (AMG, BiCGStab, GMRES, CoupledSIMPLE, Anderson,
+                      JacobiSolver)
 from ..linear.base import MatrixFreeOperator, newton_operator
 from ..mesh.device import DeviceMesh
 from ..ops import bell
 from ..exceptions import ConfigError
-from .base import Model, ResidualHistory, freeze, pack, unpack
+from .base import (Model, ResidualHistory, freeze, pack, single_device_model,
+                   unpack)
 from .newton import NewtonInner
 from .sensitivity import single_device
 
@@ -194,8 +206,8 @@ class FlowModel(Model):
     # (False: the same chunks eagerly, to hold a replay against)
     _newton_graphed = True
 
-    def __init__(self, mesh):
-        super().__init__(mesh)
+    def __init__(self, mesh, partition=None):
+        super().__init__(mesh, partition)
         self.vc = FlowVC()
 
     def _make_options(self):
@@ -229,10 +241,15 @@ class FlowModel(Model):
         }
         if self.options["nonOrthogonalCorrection"]:
             self.params["grad_coeff"] = ls_gradient_coefficients(mesh)
-        # pressure-level pin mask: interior cell 0
-        self.params["pin_mask"] = (
-            torch.arange(mesh.n_cells, device=mesh.device) == 0
-        ).to(mesh.dtype)
+        # pressure-level pin mask: (global) interior cell 0
+        if self._dist:
+            pin = np.zeros(self.partition.mesh.n_cells)
+            pin[0] = 1.0
+            self.params["pin_mask"] = self._scatter_host_cells(pin)
+        else:
+            self.params["pin_mask"] = (
+                torch.arange(mesh.n_cells, device=mesh.device) == 0
+            ).to(mesh.dtype)
 
         self._has_pressure_bc = any(
             bc.bc_type == "PressureBoundary" for _, bc in self._group_bcs()
@@ -244,13 +261,33 @@ class FlowModel(Model):
             self.options["momentumLinearSolver"] = mom
         pres = self.options.get("pressureLinearSolver")
         if pres is None:
-            pres = BiCGStab(preconditioner=AMG(), relative_tolerance=1e-3,
-                            max_iterations=30)
+            if self._dist:
+                # the shard-local AMG where a rank can coarsen, else Jacobi
+                amg_p = AMG(coarse_size=64)
+                if amg_p.setup_structure_dist(*mesh.host_cf(),
+                                              mesh.n_owned_cells, mesh.group):
+                    pres = BiCGStab(preconditioner=amg_p,
+                                    relative_tolerance=1e-3,
+                                    max_iterations=60)
+                else:
+                    pres = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                                    relative_tolerance=1e-3,
+                                    max_iterations=200)
+            else:
+                pres = BiCGStab(preconditioner=AMG(),
+                                relative_tolerance=1e-3, max_iterations=30)
             self.options["pressureLinearSolver"] = pres
         for s in (mom, pres):
             for ss in (s, getattr(s, "preconditioner", None)):
-                if isinstance(ss, AMG):
+                if not isinstance(ss, AMG):
+                    continue
+                if not self._dist:
                     ss.setup_structure(*mesh.host_cf(), mesh.device)
+                elif ss._dist_setup is None and not ss.setup_structure_dist(
+                        *mesh.host_cf(), mesh.n_owned_cells, mesh.group):
+                    raise ConfigError(
+                        "FlowModel: distributed AMG setup failed (no "
+                        "coarsening possible on this partition)")
 
         self._step = self._build_step()
         self._runners = {}
@@ -383,6 +420,8 @@ class FlowModel(Model):
             interior_cells = torch.arange(mesh.n_cells, device=dev) < n_int
             bnd = torch.arange(mesh.n_faces, device=dev) >= mesh.n_interior_faces
 
+            state = dict(state, velocity=maybe_sync(mesh, state["velocity"]),
+                         pressure=maybe_sync(mesh, state["pressure"]))
             state = me._refresh_ghosts(mesh, params, state, bcvals)
             V = state["velocity"]
             p = state["pressure"]
@@ -431,8 +470,8 @@ class FlowModel(Model):
             if l1_norm:
                 # the reference's convergence.dat records the L1 momentum
                 # residual of the first component (testFlowParallel.py)
-                mom_norm = torch.sum(torch.abs(
-                    torch.where(interior_cells[:, None], r, 0.0)[:, 0]))
+                mom_norm = A.psum(torch.sum(torch.abs(
+                    torch.where(interior_cells[:, None], r, 0.0)[:, 0])))
             else:
                 mom_norm = A.norm(r)
             Aur = A.replace(diag=torch.where(interior_cells, A.diag / urf_v,
@@ -444,8 +483,8 @@ class FlowModel(Model):
             # ---- momentum-matrix-derived coefficients --------------------
             rho_f = assembly.cells_to_faces_distance_weighted(mesh,
                                                               params["rho"])
-            vol_over_ap = torch.where(interior_cells, mesh.cell_volume / aP,
-                                      0.0)
+            vol_over_ap = maybe_sync(mesh, torch.where(
+                interior_cells, mesh.cell_volume / aP, 0.0))
             voap_f = assembly.cells_to_faces_distance_weighted(
                 mesh, bck.extend_to_ghosts(mesh, vol_over_ap))
             Df = rho_f * voap_f * mesh.face_e_over_d
@@ -456,8 +495,8 @@ class FlowModel(Model):
                 sum_off = torch.where(A.mask, A.off, 0.0).sum(dim=0)
                 den = Aur.diag + sum_off
                 corr_den = torch.where(den > 1e-300, den, aP)
-                vol_corr = torch.where(interior_cells,
-                                       mesh.cell_volume / corr_den, 0.0)
+                vol_corr = maybe_sync(mesh, torch.where(
+                    interior_cells, mesh.cell_volume / corr_den, 0.0))
                 vc_f = assembly.cells_to_faces_distance_weighted(
                     mesh, bck.extend_to_ghosts(mesh, vol_corr))
                 Df_corr = rho_f * vc_f * mesh.face_e_over_d
@@ -475,7 +514,9 @@ class FlowModel(Model):
             cont_norm = None
             for _corr in range(n_corr):
                 state2 = me._refresh_ghosts(
-                    mesh, params, dict(state, velocity=V, pressure=p), bcvals)
+                    mesh, params,
+                    dict(state, velocity=maybe_sync(mesh, V), pressure=p),
+                    bcvals)
                 V = state2["velocity"]
                 Vbar = assembly.cells_to_faces_distance_weighted(mesh, V)
                 gradp = maybe_sync(mesh, me._grad(mesh, params, p))
@@ -895,6 +936,7 @@ class FlowModel(Model):
         segregated step only)."""
         if not self._initialized:
             raise ConfigError("call init() before advanceCoupled()")
+        single_device_model("FlowModel.advanceCoupled", self.partition)
         if self.options.get("coupledLinearSolver") is None:
             pre = CoupledSIMPLE(dia=self.mesh.dia)
             pre.setup_structure(*self.mesh.host_cf(), self.mesh.device)
@@ -1157,6 +1199,7 @@ class FlowModel(Model):
         otherwise each Newton step is one step of the outer loop."""
         if not self._initialized:
             raise ConfigError("call init() before advanceNewton()")
+        single_device_model("FlowModel.advanceNewton", self.partition)
         opts = self.options
         if opts["transient"]:
             raise ConfigError("advanceNewton: steady states only")
@@ -1563,12 +1606,14 @@ class FlowModel(Model):
         return self._adjoint_grads(functional, param_keys, bc_keys, niter)
 
     def getVelocity(self):
-        """Interior-cell velocities as a host numpy (n, dim) array."""
-        return self.state["velocity"][: self.mesh.n_interior_cells].cpu().numpy()
+        """Interior-cell velocities as a host numpy (n, dim) array (global
+        numbering, from every rank, when distributed)."""
+        return self._gather_cells(self.state["velocity"])
 
     def getPressure(self):
-        """Interior-cell pressures as a host numpy array."""
-        return self.state["pressure"][: self.mesh.n_interior_cells].cpu().numpy()
+        """Interior-cell pressures as a host numpy array (global numbering,
+        from every rank, when distributed)."""
+        return self._gather_cells(self.state["pressure"])
 
     def dumpContinuityMatrix(self, prefix: str) -> None:
         """Write the current pressure-correction system as MatrixMarket

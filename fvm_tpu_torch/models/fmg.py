@@ -81,7 +81,7 @@ def prolong_flow_state(coarse, fine, k: int = 4, grad: bool = True) -> None:
         if getattr(m, "partition", None) is not None:
             raise ConfigError(
                 "prolong_flow_state: a distributed model is not ported yet "
-                "(ROADMAP queue 1 item 8)")
+                "(ROADMAP queue 1 item 8b)")
     both_src = np.concatenate([coarse.getVelocity(),
                                coarse.getPressure()[:, None]], axis=1)
     mesh = fine.mesh

@@ -20,7 +20,7 @@ BiCGStab(Jacobi(3), 1e-8, 100) on the assembled ELL matrix, whose sweeps
 and residuals are ``dia_stencil`` launches on a CUDA mesh with DIA
 structure; ``outerChunk`` runs the chunked loop (a CUDA graph replay on a
 CUDA mesh).  BC types: 'SpecifiedKE', 'Wall', 'Symmetry'.  A partitioned
-mesh raises ``ConfigError`` (ROADMAP queue 1 item 8).
+mesh raises ``ConfigError`` (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations

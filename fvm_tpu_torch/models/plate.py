@@ -15,7 +15,7 @@ mid-surface mesh (D = E h^3 / 12(1 - nu^2), S = kappa G h):
 On a (n, 3) block-ELL surrogate with the exact Jacobian action by AD of
 the residual (the JFNK pattern of ``StructureModel``).  BC types: 'Clamped',
 'Free', 'Symmetry', 'SpecifiedDeformation'.  A partitioned mesh raises
-``ConfigError`` (ROADMAP queue 1 item 8).
+``ConfigError`` (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ Models mix this in by providing ``var`` (the state key of the unknown) and
 ``_linearize(mesh, params, state, bcvals) -> (A, r)``; models with several
 unknowns or solvers (species per species, electric's potential) call the
 ``*_impl`` entry points with explicit bindings.  The distributed branches
-of the JAX package (``shard_map``) wait for ROADMAP queue 1 item 8: a
+of the JAX package (``shard_map``) wait for ROADMAP queue 1 item 8b: a
 model with a ``partition`` raises.
 """
 
@@ -54,7 +54,7 @@ def single_device(model, what: str) -> None:
     if getattr(model, "partition", None) is not None:
         raise ConfigError(
             f"{model.name}.{what}: distributed sensitivities (a partitioned "
-            "mesh) are not ported yet (ROADMAP queue 1 item 8)")
+            "mesh) are not ported yet (ROADMAP queue 1 item 8b)")
 
 
 def _numpy(t) -> np.ndarray:

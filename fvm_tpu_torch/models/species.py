@@ -7,6 +7,12 @@ shared mesh, solved in turn within one outer step.  BC types:
 'SpecifiedMassFraction', 'SpecifiedMassFlux', 'Symmetry'; double-shell
 interfaces through ``model.interface`` (a species i > 0 reads the entry
 "s<i>:<name>" first).  The sensitivities bind ``TangentMixin`` per species.
+
+Distributed (``SpeciesModel(local_mesh, partition=part)``,
+``fvm_tpu/models/species.py:131-170, 313``): the default solver is
+``BiCGStab(JacobiSolver(sweeps=3), 1e-10, 500)``; a given AMG runs as the
+JAX package runs it there, without a shard hierarchy (the diagonal).
+``getMassFraction`` and the flux integrals are global on every rank.
 """
 
 from __future__ import annotations
@@ -19,9 +25,10 @@ from ..core import bcs as bck
 from ..core import interfaces as ifc
 from ..core.options import BoundaryCondition, ModelOptions
 from ..exceptions import ConfigError
-from ..linear import AMG, BiCGStab
+from ..linear import AMG, BiCGStab, JacobiSolver
 from ..ops import assembly, discretizations as disc
 from ..ops.gradients import gradient, ls_gradient_coefficients
+from ..ops.halo import maybe_sync
 from .base import Model, ResidualHistory
 from .sensitivity import TangentMixin
 
@@ -64,9 +71,9 @@ class SpeciesModel(TangentMixin, Model):
     _supports_interfaces = True
     name = "SpeciesModel"
 
-    def __init__(self, mesh, n_species: int = 1):
+    def __init__(self, mesh, n_species: int = 1, partition=None):
         self.n_species = int(n_species)
-        super().__init__(mesh)
+        super().__init__(mesh, partition)
         self.vcs = [SpeciesVC() for _ in range(self.n_species)]
         self.vc = self.vcs[0]
         self._bcs = [self.bc]
@@ -119,11 +126,16 @@ class SpeciesModel(TangentMixin, Model):
             self.params["grad_coeff"] = ls_gradient_coefficients(mesh)
         solver = self.options.get("linearSolver")
         if solver is None:
-            solver = BiCGStab(preconditioner=AMG(), relative_tolerance=1e-10,
-                              max_iterations=50)
+            if self._dist:
+                solver = BiCGStab(preconditioner=JacobiSolver(sweeps=3),
+                                  relative_tolerance=1e-10,
+                                  max_iterations=500)
+            else:
+                solver = BiCGStab(preconditioner=AMG(),
+                                  relative_tolerance=1e-10, max_iterations=50)
             self.options["linearSolver"] = solver
         for s in (solver, getattr(solver, "preconditioner", None)):
-            if isinstance(s, AMG):
+            if isinstance(s, AMG) and not self._dist:
                 s.setup_structure(*mesh.host_cf(), mesh.device)
         self._step = self._build_step()
         self._runners = {}
@@ -132,22 +144,21 @@ class SpeciesModel(TangentMixin, Model):
 
     def _resolve_bcvals(self):
         vals = super()._resolve_bcvals()
-        mesh = self.mesh
         for i in range(1, self.n_species):
             for g, bc in self._group_bcs_for(i):
                 for key in bc:
-                    vals[f"s{i}:{g[1]}:{key}"] = bc.resolve(
-                        key, g[4], mesh.dtype, mesh.device)
+                    vals[f"s{i}:{g[1]}:{key}"] = self._group_bc_values(
+                        g, bc, key)
         return vals
 
     def _linearize_species(self, mesh, params, state, bcvals, i):
         opts = self.options
-        c = state[f"mf{i}"]
+        c = maybe_sync(mesh, state[f"mf{i}"])
         pref = "" if i == 0 else f"s{i}:"
         D_f = disc.harmonic_face_gamma(mesh, params[f"D{i}"])
         gradc = None
         if "grad_coeff" in params:
-            gradc = gradient(mesh, params["grad_coeff"], c)
+            gradc = maybe_sync(mesh, gradient(mesh, params["grad_coeff"], c))
         flux = disc.diffusion_flux(mesh, c, D_f, gradc)
         if opts["convective"]:
             flux = flux + disc.convection_flux(
@@ -265,7 +276,9 @@ class SpeciesModel(TangentMixin, Model):
                              samples, niter)
 
     def getMassFraction(self, i: int = 0):
-        return self.state[f"mf{i}"][: self.mesh.n_interior_cells].cpu().numpy()
+        """Species i's interior mass fractions (global numbering, from
+        every rank, when distributed)."""
+        return self._gather_cells(self.state[f"mf{i}"])
 
     def getMassFluxIntegral(self, group_name, i: int = 0) -> float:
         """Diffusive mass flow INTO the domain through a boundary group."""

@@ -23,7 +23,7 @@ are outside any Pallas kernel.
 BC types: 'SpecifiedDeformation' (a Dirichlet vector), 'SpecifiedTraction'
 (traction per unit area), 'SpecifiedForce' (total force over the group),
 'Symmetry', 'ZeroTraction' (a free surface).  A partitioned mesh raises
-``ConfigError`` (ROADMAP queue 1 item 8).
+``ConfigError`` (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations

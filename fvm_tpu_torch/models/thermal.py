@@ -17,6 +17,15 @@ adjoint, Monte-Carlo and polynomial chaos of T with respect to "k_cell",
 "rho_cp" and "src") and the ``differentiable`` option, whose steps solve
 through ``solve_fn_implicit`` so ``torch.func.jvp`` and reverse mode
 through a whole step give exact sensitivities.
+
+Distributed (``ThermalModel(local_mesh, partition=part)``,
+``fvm_tpu/models/thermal.py:143-184, 376-406``): the default solver is
+``BiCGStab(JacobiSolver(sweeps=3), 1e-10, 500)`` (the ghost rows are not
+symmetric and a shard's matrix is not condensed, so CG could diverge); an
+AMG solver or preconditioner gets the shard-local hierarchy.  Flux
+integrals and ``getTemperature`` are global on every rank; the
+sensitivities and the immersed boundary on shards are not ported yet
+(ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from ..core import interfaces as ifc
 from ..ops import assembly, discretizations as disc
 from ..ops.halo import maybe_sync
 from ..ops.gradients import ls_gradient_coefficients, gradient
-from ..linear import AMG, BiCGStab
+from ..linear import AMG, BiCGStab, JacobiSolver
 from ..exceptions import ConfigError
 from .base import Model, ResidualHistory
 from .sensitivity import TangentMixin
@@ -102,8 +111,8 @@ class ThermalModel(TangentMixin, Model):
     # the unknown the sensitivities differentiate (TangentMixin)
     var = "T"
 
-    def __init__(self, mesh):
-        super().__init__(mesh)
+    def __init__(self, mesh, partition=None):
+        super().__init__(mesh, partition)
         self.vc = ThermalVC()
 
     def _make_options(self):
@@ -144,14 +153,27 @@ class ThermalModel(TangentMixin, Model):
 
         solver = self.options.get("linearSolver")
         if solver is None:
-            solver = BiCGStab(
-                preconditioner=AMG(), relative_tolerance=1e-10,
-                max_iterations=50,
-            )
+            if self._dist:
+                solver = BiCGStab(
+                    preconditioner=JacobiSolver(sweeps=3),
+                    relative_tolerance=1e-10, max_iterations=500)
+            else:
+                solver = BiCGStab(
+                    preconditioner=AMG(), relative_tolerance=1e-10,
+                    max_iterations=50,
+                )
             self.options["linearSolver"] = solver
         for s in (solver, getattr(solver, "preconditioner", None)):
             if isinstance(s, AMG):
-                s.setup_structure(*mesh.host_cf(), mesh.device)
+                if not self._dist:
+                    s.setup_structure(*mesh.host_cf(), mesh.device)
+                elif not s.setup_structure_dist(*mesh.host_cf(),
+                                                mesh.n_owned_cells,
+                                                mesh.group):
+                    raise ConfigError(
+                        "ThermalModel: no shard-local AMG coarsening is "
+                        "possible on this partition; use BiCGStab with a "
+                        "Jacobi preconditioner")
 
         self._step = self._build_step()
         self._runners = {}
@@ -245,7 +267,7 @@ class ThermalModel(TangentMixin, Model):
 
         A, r = ifc.apply_model_interfaces(mesh, self.interface, A, r, T,
                                           flux, gamma_f)
-        # halo rows do not exist on one device
+        # halo rows are owned by another rank: identity here
         A, r = assembly.identity_unowned_rows(mesh, A, r)
         return A, r
 
@@ -328,8 +350,11 @@ class ThermalModel(TangentMixin, Model):
         g = self._group(group_name)
         bc = self.bc[g[1]]
         if bc.bc_type == "SpecifiedHeatFlux":
-            q = bc.resolve("specifiedHeatFlux", g[4], mesh.dtype, mesh.device)
-            return float((q * mesh.face_area_mag[mesh.group_faces(g)]).sum())
+            q = self._group_bc_values(g, bc, "specifiedHeatFlux")
+            F = torch.zeros_like(mesh.face_area_mag)
+            sl = mesh.group_faces(g)
+            F[sl] = q * mesh.face_area_mag[sl]
+            return float(self._sum_group(g, F))
         if bc.bc_type == "Symmetry":
             return 0.0
 
@@ -346,5 +371,6 @@ class ThermalModel(TangentMixin, Model):
         return float(-self._sum_group(g, F))
 
     def getTemperature(self):
-        """Interior-cell temperatures as a host numpy array."""
-        return self.state["T"][: self.mesh.n_interior_cells].cpu().numpy()
+        """Interior-cell temperatures as a host numpy array (in the global
+        numbering, gathered from every rank, when distributed)."""
+        return self._gather_cells(self.state["T"])

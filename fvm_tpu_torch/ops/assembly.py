@@ -86,13 +86,15 @@ def assemble(mesh, flux: FaceFlux, r_cell=None, diag_cell=None):
     r = torch.where(alive if r.ndim == 1 else alive[:, None], r, 0.0)
 
     A = ELLMatrix(diag=diag, off=off, cols=mesh.cf_nbr, mask=mask,
-                  dia=mesh.dia)
+                  dia=mesh.dia, halo=mesh.halo, group=mesh.group,
+                  n_owned=mesh.n_owned_cells_)
     return A, r
 
 
 def identity_unowned_rows(mesh, A: ELLMatrix, r):
-    """Halo/padding rows (cells >= n_owned) become identity equations; a
-    no-op on a single-device mesh, where every cell is owned."""
+    """Halo/padding rows (cells >= n_owned) become identity equations
+    (``fvm_tpu/ops/assembly.py:112-121``); a no-op on a single-device
+    mesh, where every cell is owned."""
     if mesh.n_owned_cells >= mesh.n_cells:
         return A, r
     sl = slice(mesh.n_owned_cells, mesh.n_cells)

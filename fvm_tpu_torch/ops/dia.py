@@ -75,8 +75,18 @@ class CondensePlan:
     (CRMatrix.h:1064).
     """
 
-    def __init__(self, cols: np.ndarray, mask: np.ndarray, device):
+    def __init__(self, cols: np.ndarray, mask: np.ndarray, device,
+                 drop_beyond: int | None = None):
         n, K = cols.shape
+        # drop_beyond: rows >= drop_beyond (a shard's halo and padding
+        # cells) are outside the local domain: their rows and every
+        # coupling into them leave the pattern WITHOUT folding (the
+        # additive-Schwarz approximation of the shard-local AMG; never on
+        # an exact solve; ``fvm_tpu/ops/dia.py:82-91``)
+        if drop_beyond is not None:
+            mask = mask.copy()
+            mask[drop_beyond:] = False
+            mask = mask & (cols < drop_beyond)
         valid = mask & (cols != np.arange(n)[:, None])
         deg = valid.sum(axis=1)
         cand = deg <= 1

@@ -274,6 +274,29 @@ def build(verbose: bool = False) -> dict:
         return fns
 
 
+def load_built() -> dict:
+    """Load the libraries a parent process built (``build``) without
+    compiling: each rank of a distributed run on a GPU calls it at start
+    (``parallel/launch.py``), so concurrent ranks never race on nvcc.
+    Raises when a library is missing."""
+    global _fns
+    with _lib_lock:
+        if _fns is not None:
+            return _fns
+        fns = {}
+        for (variant, dtype) in _BUILDS:
+            suffix = _DTYPES[dtype][0]
+            so = os.path.join(BUILD_DIR, f"libdia_{variant}_{suffix}.so")
+            if not os.path.exists(so):
+                raise RuntimeError(
+                    f"{so} is missing: build the kernels first "
+                    "(dia_kernel.build(), in the process that starts the "
+                    "ranks)")
+            fns[variant, dtype] = _bind(so, f"dia_{variant}_{suffix}")
+        _fns = fns
+        return fns
+
+
 def check_operands(offsets, mode, coef, diag, x, b=None, omega=None) -> int:
     """Raise ``ValueError`` on what the kernel does not take (a pure
     function of dtypes, devices, shapes, strides and base alignment);

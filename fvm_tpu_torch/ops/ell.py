@@ -14,6 +14,15 @@ any Pallas kernel (``fvm_tpu/ops/ell.py:171-235``).
 
 Solution vectors are ``(n,)`` or ``(n, m)``: m right-hand components share
 one scalar coefficient matrix (u/v momentum).
+
+Distributed (``halo`` and ``group`` set, on a shard's local mesh): rows
+[0, n_owned) are this rank's; a product first refreshes the halo slots of
+x (``ops/halo.halo_exchange``), then zeroes the rows it does not own, so
+the global inner products (``dot``, ``norm``: a local sum, then an
+all-reduce) count each row once (``fvm_tpu/ops/ell.py:30-41, 96-163``).
+The halo columns are no regular offsets, so a distributed matrix has no
+DIA structure and takes the gather-ELL products, and ``condense`` is a
+no-op, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,8 +55,18 @@ class ELLMatrix:
     # entries whose mirror slot is absent (``transposed``), added by the
     # gather-ELL products
     scatter: tuple | None = None
+    # distribution (a shard's local matrix): this rank's exchange tables
+    # (``ops.halo.HaloSpec``), its ``parallel.ShardGroup`` and the number
+    # of rows it owns
+    halo: object = None
+    group: object = None
+    n_owned: int | None = None
 
     replace = dataclasses.replace
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
 
     @property
     def n(self) -> int:
@@ -80,10 +99,25 @@ class ELLMatrix:
         the same condensed matrix to many right sides (``CoupledSIMPLE``)
         calls only ``rhs`` per application."""
         plan = None if self.dia is None else self.dia.cond_plan
-        if plan is None:
+        if plan is None or self.distributed:
             return self, (lambda b: (b, lambda x: x))
-        er, es, ep, ir, ik, ie = plan.t
+        diag2, off2, rhs = self.eliminate(plan)
+        A2 = self.replace(
+            diag=diag2, off=off2, dia=plan.dia2,
+            dia_coef=None, dia_fb_vals=None,
+        ).prepare()
+        return A2, rhs
+
+    def eliminate(self, plan):
+        """The arithmetic of ``condenser`` by ``plan`` (a ``CondensePlan``):
+        (diag2, off2, rhs), off2 the masked values with the eliminated
+        couplings zeroed.  The shard-local AMG calls it with each rank's
+        own plan (``linear/amg.py``); a plan with no row to eliminate
+        leaves the matrix as it is."""
         offv = torch.where(self.mask, self.off, 0.0)
+        if not plan.ok:
+            return self.diag, offv, (lambda b: (b, lambda x: x))
+        er, es, ep, ir, ik, ie = plan.t
         vE = torch.where(es >= 0, offv[es.clamp(min=0), er], 0.0)
         dE = self.diag[er]
         vIn = offv[ik, ir]
@@ -98,10 +132,6 @@ class ELLMatrix:
         off2 = offv.clone()
         off2.index_put_((ik, ir), offv.new_zeros(()))
         off2.index_fill_(1, er, 0.0)
-        A2 = self.replace(
-            diag=diag2, off=off2, dia=plan.dia2,
-            dia_coef=None, dia_fb_vals=None,
-        ).prepare()
 
         def rhs(b):
             bE = b[er]
@@ -122,7 +152,7 @@ class ELLMatrix:
 
             return b2, recover
 
-        return A2, rhs
+        return diag2, off2, rhs
 
     def transposed(self):
         """A^T as an operator, uncondensed (the JAX package's
@@ -136,6 +166,13 @@ class ELLMatrix:
         and an entry whose mirror is absent (a Dirichlet or flux ghost
         row's cleared slot is still a slot; the extra slots of shell ghosts
         and periodic pairs may have none) goes to ``scatter``."""
+        if self.distributed:
+            from ..exceptions import ConfigError
+
+            raise ConfigError(
+                "ELLMatrix.transposed: the transpose of a distributed matrix "
+                "(the dist adjoints) is not ported yet (ROADMAP queue 1 item "
+                "8b)")
         if self.dia is not None:
             A = self.prepare()
             d = A.dia
@@ -174,11 +211,38 @@ class ELLMatrix:
                             index_tensor(sc[lone], dev)])
         return ELLMatrix(self.diag, off_t, self.cols, mask_t, scatter=scatter)
 
-    def dot(self, a, b):
+    def sync(self, x):
+        """Refresh x's halo slots (distributed); else x."""
+        if self.group is None:
+            return x
+        from .halo import halo_exchange
+
+        return halo_exchange(x, self.halo, self.group)
+
+    def psum(self, v):
+        """Sum a local reduction over the ranks (distributed); else v."""
+        if self.group is None:
+            return v
+        from .halo import all_reduce
+
+        return all_reduce(v, self.group)
+
+    def local_dot(self, a, b):
+        """<a, b> over this rank's rows (``dot`` before the ranks' sum)."""
         return torch.sum(a * b)
 
+    def dot(self, a, b):
+        return self.psum(self.local_dot(a, b))
+
     def norm(self, x):
-        return torch.sqrt(torch.sum(x * x))
+        return torch.sqrt(self.psum(torch.sum(x * x)))
+
+    def _mask_owned(self, y):
+        """Zero the rows this rank does not own."""
+        if self.n_owned is None or self.n_owned >= self.n:
+            return y
+        owned = torch.arange(self.n, device=y.device) < self.n_owned
+        return torch.where(owned if y.ndim == 1 else owned[:, None], y, 0.0)
 
     def _gather_ax(self, x, mode):
         """A x by gather-ELL: diag x + sum_k off[k] x[cols[k]]."""
@@ -198,6 +262,8 @@ class ELLMatrix:
 
     def mv(self, x):
         """Sparse matrix-vector product; x is (n,) or (n, m)."""
+        if self.distributed:
+            return self._mask_owned(self._gather_ax(self.sync(x), "mv"))
         A = self.prepare()
         if A.dia is None:
             return A._gather_ax(x, "mv")
@@ -205,6 +271,8 @@ class ELLMatrix:
 
     def residual(self, x, b):
         """b - A x (one fused pass on the DIA route)."""
+        if self.distributed:
+            return b - self.mv(x)
         A = self.prepare()
         if A.dia is None:
             return b - A._gather_ax(x, "residual")
@@ -217,6 +285,8 @@ class ELLMatrix:
     def jacobi_step(self, x, b, omega=1.0):
         """Damped Jacobi: x + omega * D^-1 (b - A x) (one fused pass on the
         DIA route)."""
+        if self.distributed:
+            return x + omega * self.diag_solve(self.residual(x, b))
         A = self.prepare()
         if A.dia is None:
             return x + omega * A.diag_solve(b - A._gather_ax(x, "jacobi"))

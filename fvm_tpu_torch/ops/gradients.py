@@ -18,7 +18,11 @@ def ls_gradient_coefficients(mesh):
     """Least-squares gradient coefficients, (K, nc, dim), on the mesh's
     device and dtype.  Built on the host from the build's numpy copies
     (static per-mesh geometry), exactly as the JAX package's single-device
-    path does, so the coefficients match it bit for bit."""
+    path does, so the coefficients match it bit for bit.  A rank's local
+    mesh carries its host copies too, so this serves the distributed path
+    as well (the JAX package computes the stacked shards' coefficients on
+    the device under ``vmap``, ``fvm_tpu/ops/gradients.py:38``: the same
+    formula, another rounding)."""
     cc = mesh.host.cell_centroid
     cf_nbr = mesh.host.cf_nbr
     mask = mesh.host.cf_mask

@@ -1,8 +1,8 @@
 """How far the JAX package's own residual histories move under round-off.
 
     python3 -m scripts.roundoff_sensitivity [--cases newton,poiseuille,
-        ib,ib_stencil,channel,homocase,electric,goldens,structures,
-        transport,ke,battery,charging,kinetic,phonon]
+        ib,ib_stencil,channel,homocase,electric,goldens,goldens_dist,
+        structures,transport,ke,battery,charging,kinetic,phonon]
 
 Run from the repository root on the CPU (it imports ``fvm_tpu``, the JAX
 reference, and nothing of the port).  Each case runs twice from inputs
@@ -45,6 +45,13 @@ all by default):
   scaled) and ``thermal/<family>/np1`` (10 outers, the left wall
   temperature scaled; not for JACOBI, which has no thermal golden), each
   also against its pinned history in ``tests/goldens/histories.json``;
+* ``goldens_dist``: the sharded golden configurations of
+  ``tests/test_golden_histories.py:43-143`` on 8 virtual CPU devices (the
+  script sets ``--xla_force_host_platform_device_count=8`` before it
+  imports jax): ``cavity/<family>/np4`` for the six families (30 SIMPLE
+  outers, the viscosity scaled) and ``thermal/<family>/np8`` for AMG, ILU0
+  and SPIKE (10 outers, the left wall temperature scaled), each also
+  against its pinned history;
 * ``structures``: the JFNK models with their default inner solves and
   with inner solves at 1e-12: the cantilever of ``demos/cantilever_uq.py``
   (40 x 6, 15 outers, the end traction scaled), the plate strip of
@@ -234,6 +241,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", default="newton,poiseuille,ib,channel")
     cases = ap.parse_args().cases.split(",")
+    if "goldens_dist" in cases:
+        # the sharded goldens need 8 devices: virtual CPU devices, set
+        # before jax is first imported
+        import os
+
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -325,6 +341,8 @@ def main() -> int:
               f"{spread(*hs):.3e}", flush=True)
     if "goldens" in cases:
         _goldens(jfvm, JFlow, spread)
+    if "goldens_dist" in cases:
+        _goldens_dist(jfvm, JFlow, spread)
     if "structures" in cases:
         _structures(jfvm, spread)
     if "battery" in cases:
@@ -420,6 +438,88 @@ def _goldens(jfvm, JFlow, spread):
             t.init()
             hs.append([[r[1]] for r in t.advance(10)])
         key = f"thermal/{family}/np1"
+        print(f"{key}: max rel difference {spread(*hs):.3e}; unperturbed "
+              f"run vs the pinned golden {spread(pinned[key], hs[0]):.3e}",
+              flush=True)
+
+
+def _dist_golden_solver(family, part):
+    """A family's sharded solver as ``tests/test_golden_histories.py:
+    44-86`` builds it for ``dist``."""
+    from fvm_tpu.linear import AMG, BiCGStab, CG, JacobiSolver
+    from fvm_tpu.linear.ilu import ILU0Solver
+    from fvm_tpu.linear.spike import SpikeSolver
+
+    if family == "AMG":
+        s = AMG(coarse_size=16, relative_tolerance=1e-3, max_iterations=30)
+        sm = part.sharded_mesh
+        assert s.setup_structure_dist(
+            np.asarray(sm.cf_nbr).transpose(0, 2, 1),
+            np.asarray(sm.cf_mask).transpose(0, 2, 1), sm.n_owned_cells)
+        return s
+    if family == "JACOBI":
+        return JacobiSolver(sweeps=60)
+    if family == "SPIKE":
+        pre = SpikeSolver()
+        pre.setup_structure_dist(part)
+    else:
+        pre = {"BCGStab": lambda: JacobiSolver(sweeps=3),
+               "CG": lambda: JacobiSolver(sweeps=3),
+               "ILU0": ILU0Solver}[family]()
+    cls = CG if family == "CG" else BiCGStab
+    return cls(preconditioner=pre, relative_tolerance=1e-3,
+               max_iterations=200)
+
+
+def _goldens_dist(jfvm, JFlow, spread):
+    import json
+    import os
+    from fvm_tpu.models import ThermalModel
+    from fvm_tpu.parallel import Partition
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests", "goldens", "histories.json")
+    with open(path) as f:
+        pinned = json.load(f)
+    quad = jfvm.mesh.generate.quad_2d
+    for family in ("AMG", "BCGStab", "CG", "ILU0", "JACOBI", "SPIKE"):
+        hs = []
+        for eps in (0.0, 1e-15):
+            part = Partition(quad(32, 32), 4)
+            m = JFlow(part.sharded_mesh, partition=part)
+            m.options["verbose"] = False
+            m.vc["density"] = 1.0
+            m.vc["viscosity"] = 0.1 * (1 + eps)
+            for s_ in ("left", "right", "bottom", "top"):
+                m.bc[s_].bc_type = "NoSlipWall"
+            m.bc["top"]["specifiedXVelocity"] = 1.0
+            m.options["pressureLinearSolver"] = _dist_golden_solver(
+                family, part)
+            m.init()
+            hs.append([[float(r[1]), float(r[2])] for r in m.advance(30)])
+        key = f"cavity/{family}/np4"
+        print(f"{key}: max rel difference {spread(*hs):.3e}; unperturbed "
+              f"run vs the pinned golden {spread(pinned[key], hs[0]):.3e}",
+              flush=True)
+    for family in ("AMG", "ILU0", "SPIKE"):
+        hs = []
+        for eps in (0.0, 1e-15):
+            part = Partition(quad(32, 32), 8)
+            t = ThermalModel(part.sharded_mesh, partition=part)
+            t.options["verbose"] = False
+            s_ = _dist_golden_solver(family, part)
+            s_.relativeTolerance = 5e-2
+            s_.nMaxIterations = min(s_.nMaxIterations, 8)
+            t.options["linearSolver"] = s_
+            t.bc["left"].bc_type = "SpecifiedTemperature"
+            t.bc["left"]["specifiedTemperature"] = 400.0 * (1 + eps)
+            t.bc["right"].bc_type = "SpecifiedTemperature"
+            t.bc["right"]["specifiedTemperature"] = 300.0
+            t.bc["bottom"].bc_type = "Symmetry"
+            t.bc["top"].bc_type = "Symmetry"
+            t.init()
+            hs.append([[float(r[1])] for r in t.advance(10)])
+        key = f"thermal/{family}/np8"
         print(f"{key}: max rel difference {spread(*hs):.3e}; unperturbed "
               f"run vs the pinned golden {spread(pinned[key], hs[0]):.3e}",
               flush=True)

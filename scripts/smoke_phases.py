@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Some of ``chip_smoke.py``'s phases 18-31 alone on one GPU, for
+"""Some of ``chip_smoke.py``'s phases 18-32 alone on one GPU, for
 development.
 
 Run from the repository root:  python3 scripts/smoke_phases.py 18,19
@@ -28,7 +28,7 @@ def main() -> int:
 
     phases = {int(v) for v in (
         sys.argv[1] if len(sys.argv) > 1
-        else "18,19,20,21,22,23,24,25,26,27,28,29,30,31").split(",")}
+        else "18,19,20,21,22,23,24,25,26,27,28,29,30,31,32").split(",")}
     if not torch.cuda.is_available():
         print("smoke_phases: needs an NVIDIA GPU", file=sys.stderr)
         return 2

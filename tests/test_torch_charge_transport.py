@@ -228,6 +228,8 @@ def test_chunked_transport_equals_eager():
 
 
 def test_partitioned_mesh_raises_item_8():
+    """The distributed branch is ported (``tests/test_torch_dist.py``): a
+    partition needs the rank's local mesh (``Partition.local_mesh``)."""
     dm = build_device_mesh(tgen.quad_2d(4, 4), dtype="float64", device="cpu")
-    with pytest.raises(ConfigError, match="item 8"):
+    with pytest.raises(ConfigError, match="local mesh"):
         TElectric(dm, partition=object())

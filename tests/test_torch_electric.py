@@ -217,15 +217,16 @@ def test_chunked_advance_and_loaded_state():
 
 def test_charge_transport_raises():
     """Charge transport is ported (``tests/test_torch_charge_transport.
-    py``); what still raises is its distributed branch, a partitioned
-    mesh (ROADMAP queue 1 item 8)."""
+    py``), and so is its distributed branch (``tests/test_torch_dist.py``);
+    what raises is a partition given with a mesh that is no rank's local
+    mesh (``Partition.local_mesh``)."""
     dm = build_device_mesh(tgen.quad_2d(4, 4), dtype="float64", device="cpu")
     m = TElectric(dm)
     for g in LATERAL:
         m.bc[g].bc_type = "Symmetry"
     m.options["chargetransport_enable"] = True
     m.init()
-    with pytest.raises(ConfigError, match="item 8"):
+    with pytest.raises(ConfigError, match="local mesh"):
         TElectric(dm, partition=object())
 
 

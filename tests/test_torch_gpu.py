@@ -1598,3 +1598,26 @@ def test_mpm_substeps_cuda_match_cpu(cuda):
             s.advance(0.1, substeps=20)
             runs.append(s.state["x"].cpu().numpy())
     assert np.array_equal(runs[0], runs[1])
+
+
+def test_gloo_halo_exchange_on_cuda_tensors(cuda):
+    """Two gloo ranks on the card (``parallel.run_ranks``; first
+    ``cases.dist_probe_rank``, which holds each collective of CUDA tensors
+    to its exact result): the halo exchange of CUDA
+    tensors equals the CPU world's bit for bit (a copy), and its
+    transpose's dot-product test holds to 1e-15."""
+    from fvm_tpu_torch.parallel import run_ranks
+
+    def world(device):
+        return run_ranks("dist_suite_rank", 2, {"cases": [
+            ("probe", "dist_probe_rank", {}),
+            ("halo", "dist_halo_rank", {"mesh": ("quad_2d", (12, 8))})]},
+            device=device, backend="gloo", timeout=120.0)
+
+    gpu, cpu = world("cuda"), world("cpu")
+    for g, c in zip(gpu, cpu):
+        for k in ("Ex", "ETy", "grad", "restored"):
+            np.testing.assert_array_equal(g[f"halo/{k}"], c[f"halo/{k}"])
+    lhs = sum(float((r["halo/Ex"] * r["halo/y"]).sum()) for r in gpu)
+    rhs = sum(float((r["halo/x"] * r["halo/ETy"]).sum()) for r in gpu)
+    assert abs(lhs - rhs) <= 4e-15 * abs(lhs)

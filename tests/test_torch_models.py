@@ -275,11 +275,14 @@ def test_port_imports_no_jax_and_no_fvm_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fvm_tpu'))\n"
         "maps = open('/proc/self/maps').read()\n"
-        "print(len(sys.modules), bad, '_hostlib' in maps)\n"
+        "dist = all(m in sys.modules for m in ('fvm_tpu_torch.parallel', "
+        "'fvm_tpu_torch.parallel.partition', "
+        "'fvm_tpu_torch.parallel.launch', 'fvm_tpu_torch.ops.halo'))\n"
+        "print(len(sys.modules), bad, '_hostlib' in maps, dist)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     assert int(out[0]) > 0
-    assert out[1:] == ["[]", "False"]
+    assert out[1:] == ["[]", "False", "True"]
